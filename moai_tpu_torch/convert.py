@@ -1,0 +1,50 @@
+"""Carry the JAX package's objects over to this one.
+
+The JAX package keeps residues as uint32 arrays; this package keeps the same
+values in int64 tensors.  Each function takes one of its objects (any
+object with the same fields; arrays are read with ``np.asarray``, so jax
+arrays and numpy arrays both work) and returns the counterpart here, on
+``device``.  Weights are float numpy in both packages and need nothing.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ciphertext import Ciphertext, Plaintext
+from .keys import GaloisKeys, KSwitchKey, PublicKey, SecretKey
+
+
+def tensor(a, device="cpu") -> torch.Tensor:
+    """uint32 residues (any array) -> int64 tensor on ``device``."""
+    return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+
+
+def ciphertext(ct, device="cpu") -> Ciphertext:
+    return Ciphertext(tensor(ct.data, device), float(ct.scale),
+                      bool(ct.is_ntt))
+
+
+def plaintext(pt, device="cpu") -> Plaintext:
+    return Plaintext(tensor(pt.data, device), float(pt.scale),
+                     bool(pt.is_ntt))
+
+
+def secret_key(sk, device="cpu") -> SecretKey:
+    return SecretKey(np.asarray(sk.coeffs).astype(np.int64),
+                     tensor(sk.s_ntt, device))
+
+
+def public_key(pk, device="cpu") -> PublicKey:
+    return PublicKey(tensor(pk.data, device))
+
+
+def kswitch_key(key, device="cpu") -> KSwitchKey:
+    return KSwitchKey(tensor(key.data, device), key.q_limbs)
+
+
+def galois_keys(gks, device="cpu") -> GaloisKeys:
+    return GaloisKeys(
+        {int(g): kswitch_key(k, device) for g, k in gks.keys.items()},
+        {int(g): np.asarray(p).astype(np.int64) for g, p in gks.perms.items()})
