@@ -3,18 +3,26 @@
     python3 chip_smoke.py
 
 1. Builds the NTT kernels (moai_tpu_torch/csrc/ntt.cu) with nvcc for sm_90a.
-2. Holds each kernel against its plain PyTorch version on the card at
-   N=2^15 over all 45 limbs of the head's chain, and on limb slices; they
-   must be equal (torch.equal).  Times both (median of CUDA-event timings)
-   beside the memory bound.
-3. Runs the encrypted attention head at BERT-base head width (d_model 768,
+2. N=2^16: builds a flagship_config context (87 Q+P primes) and holds each
+   kernel against its plain PyTorch version over all its limbs and on limb
+   slices; they must be equal (torch.equal).  Times both at [8, 2, 87,
+   2^16] beside the memory bound (one call per CUDA-event pair, and the
+   device time per call of each of its two kernels from torch.profiler),
+   and drives ntt/intt (the dispatching entry points) once with the launch
+   counts set to 0 just before: each kernel must have launched, and
+   intt(ntt(x)) == x.
+3. The same check and timing at N=2^15 over all 45 limbs of the head's
+   chain and on limb slices, at [8, 2, 45, 2^15].
+4. Runs the encrypted attention head at BERT-base head width (d_model 768,
    head_dim 64, 128 tokens, 128 interleaved inputs, logN 15, L 34) with
    weights drawn at BERT-base magnitude, decrypts, and compares with the
    float64 oracle.  Both kernels must have launched during the head.
-4. Runs the head once more under torch.profiler: device time by kernel and
+5. Runs the head once more under torch.profiler: device time by kernel and
    the device's busy share.
 
-Prints a {"kernels": [...]} line, the card's name and power limit, and as
+Prints a {"kernels": [...]} line (one row per kernel and shape: the
+N=2^15 rows carry the head's launch counts, the N=2^16 rows those of the
+N=2^16 entry-point run), the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
 result, without a CUDA card or without the package beside it.
 """
@@ -71,6 +79,26 @@ def time_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def kernel_name(key: str) -> str:
+    """A profiler key without namespace, return type and arguments."""
+    return key.replace("(anonymous namespace)::", "").replace(
+        "void ", "").split("(")[0]
+
+
+def device_ms(fn, calls: int = 10) -> dict:
+    """Device time per call of each CUDA kernel that fn() launches, from
+    torch.profiler over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {kernel_name(e.key): e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+
+
 def random_residues(qs: torch.Tensor, lead: tuple, N: int) -> torch.Tensor:
     """Uniform residues [*lead, len(qs), N], row l below qs[l], on the card."""
     r = torch.randint(0, 1 << 62, lead + (len(qs), N), dtype=torch.int64,
@@ -104,13 +132,15 @@ def check_kernels(ctx) -> dict:
                 raise SystemExit(f"{name} differs from its plain version "
                                  f"on limbs {sl}: max |diff| {err}")
         ms = time_ms(lambda: kern(x, cuda_tb))
+        dev = device_ms(lambda: kern(x, cuda_tb))
         plain_ms = time_ms(lambda: plain(x, tb), reps=3)
         bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
         res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound, shape=list(x.shape))
-        log(f"{name}: equal to plain on limbs "
+                         bound_ms=bound, shape=list(x.shape), device_ms=dev)
+        log(f"{name} N=2^{ctx.cfg.logN}: equal to plain on limbs "
             f"{[c[0] for c in cases]}; {tuple(x.shape)}: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, memory bound {bound:.3f} ms")
+            f"device {json.dumps(dev)}, plain {plain_ms:.3f} ms, memory "
+            f"bound {bound:.3f} ms")
     fwd = ntt_cuda.ntt_cuda(x, cuda_tb)
     if not torch.equal(ntt_cuda.intt_cuda(fwd, cuda_tb), x):
         raise SystemExit("intt(ntt(x)) != x on the card")
@@ -118,9 +148,39 @@ def check_kernels(ctx) -> dict:
     return res
 
 
+def flagship_ntt() -> dict:
+    """The N=2^16 phase on a flagship_config context: kernels against the
+    plain transforms and timed, then the ntt/intt entry points once with
+    the counts set to 0 just before and read just after; each kernel's
+    measurements carry the launches of that run."""
+    from moai_tpu_torch import ntt as nt
+    from moai_tpu_torch import ntt_cuda
+    from moai_tpu_torch.params import Context, flagship_config
+    t0 = time.time()
+    ctx = Context(flagship_config(), device="cuda")
+    log(f"flagship context (logN 16, L={ctx.L} K={ctx.K}) "
+        f"{time.time() - t0:.1f} s")
+    kern = check_kernels(ctx)
+    tb = ctx.dev["ntt"]
+    x = random_residues(tb["q"], (2, 2), ctx.cfg.N)
+    ntt_cuda.reset_launches()
+    back = nt.intt(nt.ntt(x, tb), tb)
+    torch.cuda.synchronize()
+    counts = dict(ntt_cuda.launches)
+    log(f"N=2^16 entry points: launches {counts}")
+    if counts != {"ntt_fwd": 1, "ntt_inv": 1}:
+        raise SystemExit("ntt/intt at N=2^16 did not go through the kernels")
+    if not torch.equal(back, x):
+        raise SystemExit("intt(ntt(x)) != x at N=2^16")
+    for k in KERNELS:
+        kern[k]["launches"] = counts[k]
+    return kern
+
+
 def profile_head(head) -> dict:
     """One more run of the head under torch.profiler: device time by kernel
-    (top 10) and the device's busy share of the wall time."""
+    (top 10, and every NTT kernel) and the device's busy share of the wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -137,7 +197,9 @@ def profile_head(head) -> dict:
     return {"wall_s": wall, "device_busy_s": busy,
             "device_busy_share": busy / wall,
             "top": [{"s": s, "calls": n, "name": k[:80]}
-                    for s, n, k in rows[:10]]}
+                    for s, n, k in rows[:10]],
+            "ntt": [{"s": s, "calls": n, "name": kernel_name(k)}
+                    for s, n, k in rows if "ntt_" in k]}
 
 
 def bert_weights(rng, d_model: int, head_dim: int) -> dict:
@@ -169,6 +231,9 @@ def main() -> int:
     log(f"card: {name_power}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
+    kern16 = flagship_ntt()
+    torch.cuda.empty_cache()
+
     t0 = time.time()
     head = build_head(**HEAD, device="cuda",
                       weights=bert_weights(np.random.default_rng(0),
@@ -195,6 +260,7 @@ def main() -> int:
     for k in KERNELS:
         if launches[k] <= 0:
             raise SystemExit(f"{k} was not launched by the head")
+        kern[k]["launches"] = launches[k]
 
     got = head.decode(out)
     want = head.oracle()
@@ -211,11 +277,12 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": "moai_tpu_torch/csrc/ntt.cu",
-         "replaces": KERNELS[k], "launches": launches[k],
-         "max_abs_err": kern[k]["max_abs_err"], "ms": kern[k]["ms"],
-         "plain_ms": kern[k]["plain_ms"], "bound_ms": kern[k]["bound_ms"],
+         "replaces": KERNELS[k], "launches": m[k]["launches"],
+         "max_abs_err": m[k]["max_abs_err"], "ms": m[k]["ms"],
+         "plain_ms": m[k]["plain_ms"], "bound_ms": m[k]["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
-         "shape": kern[k]["shape"]} for k in KERNELS]}))
+         "shape": m[k]["shape"], "device_ms": m[k]["device_ms"]}
+        for m in (kern, kern16) for k in KERNELS]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,12 @@ with a plain C interface, at first use, into ``_build/`` beside this file
 ctypes.  Nothing is compiled or loaded at import: a machine without the
 CUDA toolkit imports this module and only fails when a kernel is asked for.
 
-``ntt_cuda``/``intt_cuda`` take a CUDA int64 tensor ``[..., L_act, N]`` and
-launch the kernel, or raise; they never fall back to the plain transforms
-of ``ntt.py``.  Each launch adds one to ``launches``.
+``ntt_cuda``/``intt_cuda`` take a CUDA int64 tensor ``[..., L_act, N]``,
+2^9 <= N <= 2^16, and launch the kernels, or raise; they never fall back to
+the plain transforms of ``ntt.py``.  A call is two device kernels, the two
+passes of the 4-step split N = n1 * n2 (``ntt._split``), which hand each
+other a uint32 scratch the wrapper allocates; each call adds one to
+``launches``.
 """
 
 from __future__ import annotations
@@ -31,9 +34,9 @@ SRC = Path(__file__).resolve().parent / "csrc" / "ntt.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# one block holds a row of N uint32 words in shared memory: 2^15 words are
-# 128 KB; 2^16 would need 256 KB, above the 227 KB a Hopper block may have
-MAX_LOG_N = 15
+# the kernels tile N = n1 * n2 with n1, n2 = _split(N) and at most 256 x
+# 256 points (a 256-point tile of 32 transforms is 35 KB of shared memory)
+MIN_LOG_N, MAX_LOG_N = 9, 16
 
 launches = {"ntt_fwd": 0, "ntt_inv": 0}
 
@@ -75,42 +78,65 @@ def _lib() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.moai_ntt_fwd.argtypes = [p, p, ll, i, i, p, p, p, p]
-    lib.moai_ntt_inv.argtypes = [p, p, ll, i, i, p, p, p, p, p, p]
+    lib.moai_ntt_fwd.argtypes = [p, p, p, ll, i, i, p, p, p, p, p]
+    lib.moai_ntt_inv.argtypes = [p, p, p, ll, i, i, p, p, p, p, p]
     lib.moai_ntt_fwd.restype = i
     lib.moai_ntt_inv.restype = i
     return lib
 
 
 class CudaNttTables:
-    """The kernels' radix-2 tables over all of a context's primes, on the
-    card: ``w[l, k] = psi_l^bitrev(k)`` (forward), ``winv[l, k] =
-    psi_l^-bitrev(k)`` (inverse), each with Shoup companions, and 1/N per
-    limb.  Stored as int32 tensors holding the uint32 bit patterns."""
+    """The kernels' tables over all of a context's primes, on ``device``.
+
+    Per limb, each entry a (twiddle, Shoup companion) pair of uint32, held
+    as int32 tensors [..., 2] with the uint32 bit patterns (psi: the limb's
+    primitive 2N-th root; n1, n2 = ``_split(N)``; brv: bit reversal):
+
+    - ``fwd_cols`` [L, n1]: ``psi^(n2 brv(k))``, the n1-point negacyclic
+      Cooley-Tukey table of root psi1 = psi^n2 (the twist psi^(j1 n2));
+    - ``fwd_mid`` [L, n1, n2]: ``psi^((2 k1 + 1) j2)``;
+    - ``fwd_rows`` [L, n2]: entry m + i (stage m, block i) is
+      ``w^((n2 / 2m) brv_m(i))``, the n2-point cyclic table of w = psi^(2 n1);
+    - ``inv_rows``, ``inv_cols``: the inverses of ``fwd_rows``, ``fwd_cols``;
+    - ``inv_mid`` [L, n1, n2]: ``psi^-((2 k1 + 1) j2) / N``.
+
+    Entry 0 of the small tables is unused (1).  ``q`` [L] holds the primes.
+    """
 
     def __init__(self, nt: NttTables, device):
         self.device = torch.device(device)
         self.N, self.log_n, self.L = nt.N, nt.logN, len(nt.qs)
-        brv = _bitrev_perm(nt.N)
-        shape = (self.L, nt.N)
-        w, ws, wi, wis = (np.empty(shape, np.uint32) for _ in range(4))
-        ninv = np.empty(self.L, np.uint32)
-        ninv_sh = np.empty(self.L, np.uint32)
-        for i, q in enumerate(nt.qs):
-            psi = nt.psi[i]
-            fw = _pow_mod_vec(psi, brv, q)
-            iw = _pow_mod_vec(inv_mod(psi, q), brv, q)
-            w[i], ws[i] = fw.astype(np.uint32), _shoup_vec(fw, q)
-            wi[i], wis[i] = iw.astype(np.uint32), _shoup_vec(iw, q)
-            n_inv = np.array([inv_mod(nt.N, q)], np.uint64)
-            ninv[i], ninv_sh[i] = n_inv[0], _shoup_vec(n_inv, q)[0]
+        N, n1, n2 = nt.N, nt.n1, nt.n2
+        e_cols = n2 * _bitrev_perm(n1)
+        e_rows = np.zeros(n2, np.int64)
+        m = 1
+        while m < n2:
+            e_rows[m:2 * m] = (N // m) * _bitrev_perm(m)
+            m *= 2
+        k1 = np.arange(n1, dtype=np.int64)[:, None]
+        j2 = np.arange(n2, dtype=np.int64)[None, :]
+        e_mid = (2 * k1 + 1) * j2 % (2 * N)
+        tabs = {k: [] for k in ("fwd_cols", "fwd_mid", "fwd_rows",
+                                "inv_rows", "inv_mid", "inv_cols")}
+        for q, psi in zip(nt.qs, nt.psi):
+            pw = _pow_mod_vec(psi, np.arange(2 * N, dtype=np.int64), q)
+            ninv = np.uint64(inv_mod(N, q))
+            for name, w in (
+                    ("fwd_cols", pw[e_cols]),
+                    ("fwd_mid", pw[e_mid]),
+                    ("fwd_rows", pw[e_rows]),
+                    ("inv_rows", pw[-e_rows % (2 * N)]),
+                    ("inv_mid", pw[-e_mid % (2 * N)] * ninv % np.uint64(q)),
+                    ("inv_cols", pw[-e_cols % (2 * N)])):
+                tabs[name].append(np.stack(
+                    [w.astype(np.uint32), _shoup_vec(w, q)], axis=-1))
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)
                                     ).to(self.device)
         self.q = dev(nt.q)
-        self.w, self.ws, self.wi, self.wis = dev(w), dev(ws), dev(wi), dev(wis)
-        self.ninv, self.ninv_sh = dev(ninv), dev(ninv_sh)
+        for name, v in tabs.items():
+            setattr(self, name, dev(np.stack(v)))
 
     def row_ptr(self, t: torch.Tensor, lo: int) -> int:
         """Address of limb ``lo`` in a per-limb table (4-byte words)."""
@@ -120,10 +146,10 @@ class CudaNttTables:
 def _check(x: torch.Tensor, tables: CudaNttTables, limb_slice):
     """Validate a launch; returns (first limb, active limbs, rows)."""
     n = x.shape[-1] if x.dim() else 0
-    if n > (1 << MAX_LOG_N):
+    if not (1 << MIN_LOG_N <= n <= 1 << MAX_LOG_N) or n & (n - 1):
         raise ValueError(
-            f"N={n}: the NTT kernels hold one row in shared memory and "
-            f"take N <= {1 << MAX_LOG_N} (N=2^16 needs a two-pass design)")
+            f"N={n}: the NTT kernels take N = 2^{MIN_LOG_N} .. "
+            f"2^{MAX_LOG_N} (a 4-step split of at most 256 x 256)")
     if not x.is_cuda:
         raise ValueError("the NTT kernels take a CUDA tensor; the plain "
                          "transforms are ntt.ntt_plain/intt_plain")
@@ -142,37 +168,30 @@ def _check(x: torch.Tensor, tables: CudaNttTables, limb_slice):
     return lo, hi - lo, x.numel() // n
 
 
-def ntt_cuda(x: torch.Tensor, tables: CudaNttTables, limb_slice=None):
-    """Forward negacyclic NTT of every row of ``x`` on the card."""
+def _launch(name: str, x, tables, limb_slice, table_names):
     lo, limbs, rows = _check(x, tables, limb_slice)
     y = torch.empty_like(x)
     if rows:
+        scratch = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+        ptrs = [tables.row_ptr(getattr(tables, t), lo)
+                for t in ("q", *table_names)]
         with torch.cuda.device(x.device):
-            err = _lib().moai_ntt_fwd(
-                x.data_ptr(), y.data_ptr(), rows, limbs, tables.log_n,
-                tables.row_ptr(tables.q, lo), tables.row_ptr(tables.w, lo),
-                tables.row_ptr(tables.ws, lo),
-                torch.cuda.current_stream().cuda_stream)
+            err = getattr(_lib(), f"moai_{name}")(
+                x.data_ptr(), y.data_ptr(), scratch.data_ptr(), rows, limbs,
+                tables.log_n, *ptrs, torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"moai_ntt_fwd launch failed: CUDA error {err}")
-        launches["ntt_fwd"] += 1
+            raise RuntimeError(f"moai_{name} launch failed: CUDA error {err}")
+        launches[name] += 1
     return y
+
+
+def ntt_cuda(x: torch.Tensor, tables: CudaNttTables, limb_slice=None):
+    """Forward negacyclic NTT of every row of ``x`` on the card."""
+    return _launch("ntt_fwd", x, tables, limb_slice,
+                   ("fwd_cols", "fwd_mid", "fwd_rows"))
 
 
 def intt_cuda(x: torch.Tensor, tables: CudaNttTables, limb_slice=None):
     """Inverse negacyclic NTT (1/N included) of every row on the card."""
-    lo, limbs, rows = _check(x, tables, limb_slice)
-    y = torch.empty_like(x)
-    if rows:
-        with torch.cuda.device(x.device):
-            err = _lib().moai_ntt_inv(
-                x.data_ptr(), y.data_ptr(), rows, limbs, tables.log_n,
-                tables.row_ptr(tables.q, lo), tables.row_ptr(tables.wi, lo),
-                tables.row_ptr(tables.wis, lo),
-                tables.row_ptr(tables.ninv, lo),
-                tables.row_ptr(tables.ninv_sh, lo),
-                torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"moai_ntt_inv launch failed: CUDA error {err}")
-        launches["ntt_inv"] += 1
-    return y
+    return _launch("ntt_inv", x, tables, limb_slice,
+                   ("inv_rows", "inv_mid", "inv_cols"))

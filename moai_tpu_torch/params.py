@@ -280,3 +280,33 @@ def head_config(logN: int = 15, n_data_levels: int = 16) -> CKKSConfig:
     return CKKSConfig(logN=logN, q0_bits=(30.0, 30.0), data_pair_bits=26.0,
                       n_data_levels=n_data_levels, n_boot_levels=0, dnum=3,
                       hamming_weight=64)
+
+
+def _approx_security_bits(cfg: CKKSConfig) -> float:
+    """Closed-form estimate from the CONFIG bit budget (no prime search):
+    logQP ~ sum of configured sizes + special primes covering the largest
+    hybrid digit.  Good to ~1 bit vs the built-context estimate."""
+    from .security import security_bits
+    logq = (sum(cfg.q0_bits) + 2 * cfg.data_pair_bits * cfg.n_data_levels
+            + 2 * cfg.boot_pair_bits * cfg.n_boot_levels)
+    n_primes = len(cfg.q0_bits) + 2 * (cfg.n_data_levels + cfg.n_boot_levels)
+    alpha = math.ceil(n_primes / max(1, min(cfg.dnum, n_primes)))
+    digit_bits = alpha * max(cfg.q0_bits[0], cfg.data_pair_bits,
+                             cfg.boot_pair_bits)
+    special = math.ceil(digit_bits / cfg.special_bits) * cfg.special_bits
+    return security_bits(cfg.N, logq + special,
+                         hamming_weight=cfg.hamming_weight or None)
+
+
+def flagship_config() -> CKKSConfig:
+    """The full chain at N=2^16: 20 data levels + 16 boot levels (3
+    CoeffToSlot + 10 EvalMod + 3 SlotToCoeff composite levels), q0 = 60
+    bits, dnum 6: the throughput-first chain, held to at least 55 bits of
+    conservative core-SVP hardness (``security.py``)."""
+    cfg = CKKSConfig(logN=16, q0_bits=(30.0, 30.0), data_pair_bits=26.0,
+                     n_data_levels=20, boot_pair_bits=29.0, n_boot_levels=16,
+                     dnum=6, hamming_weight=192)
+    bits = _approx_security_bits(cfg)
+    assert bits >= 55.0, \
+        f"flagship chain regressed below its documented floor: {bits:.1f}"
+    return cfg

@@ -8,6 +8,8 @@ without them (tests/conftest.py imports JAX, hence ``--noconftest``):
 
 Without a card every test skips."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -25,9 +27,12 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("sl", [None, (2, 5), (8, 12)])
-def test_kernels_match_plain(card, sl):
-    ctx = Context(_test_config(), device=card)
+@pytest.mark.parametrize("logN,sl", [
+    (9, None), (10, None), (11, None), (11, (2, 5)), (11, (8, 12)),
+    (12, None), (13, None), (14, None), (15, None), (16, None), (16, (3, 7))])
+def test_kernels_match_plain(card, logN, sl):
+    """Every N the kernels take, all limbs and slices of the test chain."""
+    ctx = Context(dataclasses.replace(_test_config(), logN=logN), device=card)
     tb = ctx.dev["ntt"]
     lo, hi = sl or (0, ctx.L + ctx.K)
     x = torch.stack([torch.randint(0, q, (3, 2, ctx.cfg.N), device=card)
