@@ -11,20 +11,31 @@
    and drives ntt/intt (the dispatching entry points) once with the launch
    counts set to 0 just before: each kernel must have launched, and
    intt(ntt(x)) == x.
-3. The same check and timing at N=2^15 over all 45 limbs of the head's
-   chain and on limb slices, at [8, 2, 45, 2^15].
-4. Runs the encrypted attention head at BERT-base head width (d_model 768,
+3. Runs the encrypted attention head at BERT-base head width (d_model 768,
    head_dim 64, 128 tokens, 128 interleaved inputs, logN 15, L 34) with
-   weights drawn at BERT-base magnitude, decrypts, and compares with the
-   float64 oracle.  Both kernels must have launched during the head.
-5. Runs the head once more under torch.profiler: device time by kernel and
-   the device's busy share.
+   weights drawn at BERT-base magnitude: after set-up, the same check and
+   timing on its context (all 45 limbs and slices, [8, 2, 45, 2^15]);
+   then one pass with the launch counts set to 0 just before (both kernels
+   must have launched), decrypted and compared with the float64 oracle.
+4. Runs one encoder layer at full BERT-base width (entry.build_layer:
+   d_model 768, 12 heads of 64, d_inter 3072, 128 tokens, 128 inputs,
+   logN 15, L 28, DepthPlan(5, 5, 2, 0, 16), weights synthesized by
+   load_reference_layer, domains from calibrate_domains, the harness
+   Recryptor as its refresh): set-up seconds (keys and weights, encryption
+   of the input), the same kernel check and timing on the layer's context
+   (all 38 limbs and slices, [8, 2, 38, 2^15]), then one pass with the
+   launch counts set to 0 just before (both kernels must have launched):
+   its seconds (host clock, the pass traced by torch.profiler: device time
+   by kernel and the busy share), peak memory and the seconds inside the
+   refreshes; then the decrypted output against the float64 oracle
+   (gated) and against plain_bert_layer (reported).
 
-Prints a {"kernels": [...]} line (one row per kernel and shape: the
-N=2^15 rows carry the head's launch counts, the N=2^16 rows those of the
-N=2^16 entry-point run), the card's name and power limit, and as
-its last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
-result, without a CUDA card or without the package beside it.
+Prints a {"kernels": [...]} line, one row per kernel and path: each row's
+check and timings come from that path's context and its launches from
+that path's run (the N=2^16 rows from the ntt/intt entry-point run), then
+the card's name and power limit, and as its last line {"ok": true,
+"device": {...}}.  Exits non-zero, printing no result, without a CUDA
+card or without the package beside it.
 """
 
 from __future__ import annotations
@@ -47,14 +58,35 @@ HEAD = dict(logN=15, n_data_levels=16, num_x=128, num_row=128, d_model=768,
 # polynomials, which the oracle repeats exactly, so CKKS noise and the
 # 2^-26 weight/mask quantization are what remain.
 HEAD_ATOL = 1e-3
+LAYER = dict(logN=15, n_data_levels=13, input_count=128)
+LAYER_DIMS = dict(num_x=128, num_row=128, d_model=768, num_heads=12,
+                  head_dim=64, d_inter=3072)
+LAYER_PLAN = dict(exp_r=5, inv_iters=5, ln_newton=2, ln_gold=0,
+                  gelu_degree=16)
+# Decrypted layer output vs layer_oracle, absolute, on LayerNorm outputs
+# (magnitude ~1-4): the head's 1e-3.  The oracle repeats every
+# approximation (exp, inverse, the rsqrt's line and Newton steps, the
+# degree-16 GELU), and each Recryptor refresh re-encodes at 2^52, so CKKS
+# noise, the 2^-26 quantization of weights and masks, and their growth
+# through LayerNorm's rsqrt (1/sigma of order 1-2 here) remain: the logN-9
+# tests see 4e-9 at 2^52, far inside.
+LAYER_ATOL = 1e-3
+# what the layer runs before each of its refreshes
+LAYER_STAGES = ["heads: Q/K, QK^T, exp, sums", "heads: inverse, "
+                "softmax x V; W_O", "-", "residual, LayerNorm 1",
+                "FFN: W_I, GELU, W_F", "-", "residual, LayerNorm 2"]
 KERNELS = {
     "ntt_fwd": "moai_tpu/pallas_ntt.py:282",
     "ntt_inv": "moai_tpu/pallas_ntt.py:301",
 }
 
 
+START = time.time()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """Print a line, prefixed with the seconds since the script started."""
+    print(f"[{time.time() - START:7.1f} s]", *a, flush=True)
 
 
 def card() -> str:
@@ -177,29 +209,30 @@ def flagship_ntt() -> dict:
     return kern
 
 
-def profile_head(head) -> dict:
-    """One more run of the head under torch.profiler: device time by kernel
-    (top 10, and every NTT kernel) and the device's busy share of the wall
-    time."""
+def profile_pass(fn):
+    """fn() under torch.profiler (device activity only, which traces each
+    kernel and leaves the host's ops alone): returns fn's result, and the
+    wall time, device time by kernel (top 10, and every NTT kernel) and the
+    device's busy share of the wall time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        head.fn(head.x_data)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    from torch.autograd import DeviceType
     rows = [(e.self_device_time_total / 1e6, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    return {"wall_s": wall, "device_busy_s": busy,
-            "device_busy_share": busy / wall,
-            "top": [{"s": s, "calls": n, "name": k[:80]}
-                    for s, n, k in rows[:10]],
-            "ntt": [{"s": s, "calls": n, "name": kernel_name(k)}
-                    for s, n, k in rows if "ntt_" in k]}
+    return out, {"wall_s": wall, "device_busy_s": busy,
+                 "device_busy_share": busy / wall,
+                 "kernels": sum(r[1] for r in rows),
+                 "top": [{"s": s, "calls": n, "name": k[:80]}
+                         for s, n, k in rows[:10]],
+                 "ntt": [{"s": s, "calls": n, "name": kernel_name(k)}
+                         for s, n, k in rows if "ntt_" in k]}
 
 
 def bert_weights(rng, d_model: int, head_dim: int) -> dict:
@@ -214,26 +247,12 @@ def bert_weights(rng, d_model: int, head_dim: int) -> dict:
                 bv=rng.normal(0, 0.02, head_dim))
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+def run_head() -> dict:
+    """The head phase: set-up, kernels against plain at its chain, one
+    timed pass that must launch both kernels, the oracle check.  Returns
+    the kernels' measurements with the pass's launches."""
     from moai_tpu_torch import ntt_cuda
     from moai_tpu_torch.entry import build_head
-
-    t0 = time.time()
-    lib, msgs = ntt_cuda.build()
-    log(f"built {lib.name} in {time.time() - t0:.1f} s")
-    for line in msgs.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log("  nvcc:", line.strip())
-    name_power = card()
-    log(f"card: {name_power}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}")
-
-    kern16 = flagship_ntt()
-    torch.cuda.empty_cache()
-
     t0 = time.time()
     head = build_head(**HEAD, device="cuda",
                       weights=bert_weights(np.random.default_rng(0),
@@ -272,17 +291,114 @@ def main() -> int:
         f"{HEAD_ATOL}), max |out| {np.abs(want).max():.3f}")
     if err > HEAD_ATOL:
         raise SystemExit("head output outside tolerance")
+    return kern
+
+
+def run_layer() -> dict:
+    """The layer phase: set-up, kernels against plain at its chain, one
+    pass with the launch counts set to 0 just before, timed on the host
+    clock and traced by torch.profiler, then the oracle check.  Returns the
+    kernels' measurements with the pass's launches."""
+    from moai_tpu_torch import ntt_cuda
+    from moai_tpu_torch.entry import build_layer
+    from moai_tpu_torch.models.bert import BertDims, DepthPlan
+    t0 = time.time()
+    layer = build_layer(**LAYER, dims=BertDims(**LAYER_DIMS),
+                        plan=DepthPlan(**LAYER_PLAN), device="cuda")
+    inner = layer.layer
+    log(f"layer set-up {time.time() - t0:.1f} s: "
+        f"{json.dumps(layer.setup_s)} (context, keys, weights, calibration;"
+        f" encode + encrypt of the input); L={layer.ctx.L} K={layer.ctx.K}"
+        f" n_att={inner.n_att} n_ln1={inner.n_ln1} n_ffn={inner.n_ffn}; "
+        f"column chunks: LayerNorm/FFN {inner.col_chunk}, QK^T "
+        f"{inner.attn.col_chunk}; x {tuple(layer.x_data.shape)}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    d = layer.domains
+    log(f"calibration: max table {layer.max_val:.4f}, gelu domain "
+        f"{d['gelu']:.4f}, LayerNorm S domains {d['ln1']} (hi/lo "
+        f"{d['ln1'][1] / d['ln1'][0]:.2f}) and {d['ln2']} (hi/lo "
+        f"{d['ln2'][1] / d['ln2'][0]:.2f}); the linear rsqrt init "
+        f"diverges past hi/lo ~20")
+
+    kern = check_kernels(layer.ctx)
+
+    ntt_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, prof = profile_pass(lambda: layer.fn(layer.x_data))
+    secs = prof["wall_s"]
+    launches = dict(ntt_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    refresh_s = sum(r[3] for r in layer.refresh_log)
+    n = LAYER["input_count"]
+    # the stretches between refreshes, on the host clock
+    stages, end = [], t0
+    for label, (shape, n_q, start, dt) in zip(LAYER_STAGES,
+                                               layer.refresh_log):
+        stages.append((label, round(start - end, 2)))
+        stages.append((f"refresh {list(shape)} -> n_q {n_q}", round(dt, 2)))
+        end = start + dt
+    log(f"layer: {secs:.2f} s per pass, {secs / n:.4f} s per input; "
+        f"inside the Recryptor refreshes {refresh_s:.2f} s, the rest "
+        f"{secs - refresh_s:.2f} s; peak {peak / 2**30:.2f} GiB allocated, "
+        f"{peak_reserved / 2**30:.2f} GiB reserved; output "
+        f"n_q={out.n_q}; launches {launches}; by stage (s): "
+        f"{json.dumps(stages)}")
+    for k in KERNELS:
+        if launches[k] <= 0:
+            raise SystemExit(f"{k} was not launched by the layer")
+        kern[k]["launches"] = launches[k]
+
+    got = layer.decode(out)
     del out
-    log("profile:", json.dumps(profile_head(head)))
+    want = layer.oracle()
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise SystemExit(f"layer output {got.shape} not finite / not "
+                         f"{want.shape}")
+    err = float(np.abs(got - want).max())
+    rows = np.arange(LAYER_DIMS["num_row"])[None, :] < layer.lens[:, None]
+    err_plain = float(np.abs(got - layer.plain())[rows].max())
+    log(f"layer vs float64 oracle: max |err| {err:.3e} (tolerance "
+        f"{LAYER_ATOL}), max |out| {np.abs(want).max():.3f}; vs "
+        f"plain_bert_layer (valid rows, not gated): {err_plain:.3e}")
+    log("layer profile:", json.dumps(prof))
+    if err > LAYER_ATOL:
+        raise SystemExit("layer output outside tolerance")
+    return kern
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from moai_tpu_torch import ntt_cuda
+
+    t0 = time.time()
+    lib, msgs = ntt_cuda.build()
+    log(f"built {lib.name} in {time.time() - t0:.1f} s")
+    for line in msgs.splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            log("  nvcc:", line.strip())
+    name_power = card()
+    log(f"card: {name_power}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+
+    paths = {"ntt/intt entry points": flagship_ntt()}
+    torch.cuda.empty_cache()
+    paths["head"] = run_head()
+    torch.cuda.empty_cache()
+    paths["layer"] = run_layer()
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": "moai_tpu_torch/csrc/ntt.cu",
          "replaces": KERNELS[k], "launches": m[k]["launches"],
          "max_abs_err": m[k]["max_abs_err"], "ms": m[k]["ms"],
          "plain_ms": m[k]["plain_ms"], "bound_ms": m[k]["bound_ms"],
-         "bound_by": "bytes", "library_ms": None,
+         "bound_by": "bytes", "library_ms": None, "path": path,
          "shape": m[k]["shape"], "device_ms": m[k]["device_ms"]}
-        for m in (kern, kern16) for k in KERNELS]}))
+        for path, m in paths.items() for k in KERNELS]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

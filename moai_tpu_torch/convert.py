@@ -4,10 +4,13 @@ The JAX package keeps residues as uint32 arrays; this package keeps the same
 values in int64 tensors.  Each function takes one of its objects (any
 object with the same fields; arrays are read with ``np.asarray``, so jax
 arrays and numpy arrays both work) and returns the counterpart here, on
-``device``.  Weights are float numpy in both packages and need nothing.
+``device``.  Weights are float numpy in both packages; only their
+container type changes.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -48,3 +51,12 @@ def galois_keys(gks, device="cpu") -> GaloisKeys:
     return GaloisKeys(
         {int(g): kswitch_key(k, device) for g, k in gks.keys.items()},
         {int(g): np.asarray(p).astype(np.int64) for g, p in gks.perms.items()})
+
+
+def bert_layer_weights(w):
+    """The JAX package's ``BertLayerWeights`` (float64 numpy) -> the
+    port's, field by field."""
+    from .models.bert import BertLayerWeights
+    return BertLayerWeights(**{
+        f.name: np.asarray(getattr(w, f.name), np.float64)
+        for f in dataclasses.fields(BertLayerWeights)})

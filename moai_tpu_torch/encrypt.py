@@ -28,7 +28,15 @@ def encode_ntt(ctx: Context, encoder: Encoder, vals, scale: float, n_q: int
                ) -> torch.Tensor:
     """Host-encode slot values [..., slots] -> NTT Montgomery residues
     [..., n_q, N] on the context's device."""
-    rounded = encoder.encode_coeffs(vals, scale)
+    return rounded_to_ntt(ctx, encoder, encoder.encode_coeffs(vals, scale),
+                          n_q)
+
+
+def rounded_to_ntt(ctx: Context, encoder: Encoder, rounded: np.ndarray,
+                   n_q: int) -> torch.Tensor:
+    """Rounded integer coefficients [..., N] (float64, from
+    ``Encoder.encode_coeffs``) -> NTT Montgomery residues [..., n_q, N] on
+    the context's device."""
     lead = rounded.shape[:-1]
     flat = rounded.reshape(-1, ctx.cfg.N)
     out = torch.empty((flat.shape[0], n_q, ctx.cfg.N), dtype=torch.int64,

@@ -1,16 +1,23 @@
-"""The encrypted attention head, end to end.
+"""The encrypted attention head and the encrypted encoder layer, end to end.
 
-Port of ``__graft_entry__._build_head``: one full encrypted attention head
-(Q/K/V CPMM -> QK^T CCMM -> polynomial softmax with an in-budget
-Goldschmidt inverse -> softmax*V CCMM) over an interleaved batch of
-``num_x`` inputs of ``num_row`` tokens.  ``head_oracle`` computes the same
-function, with the same polynomial approximations, in float64 numpy.
+- ``build_head``: port of ``__graft_entry__._build_head``, one full
+  encrypted attention head (Q/K/V CPMM -> QK^T CCMM -> polynomial softmax
+  with an in-budget Goldschmidt inverse -> softmax*V CCMM) over an
+  interleaved batch of ``num_x`` inputs of ``num_row`` tokens.
+- ``build_layer``: one BERT encoder layer (``models.bert.
+  EncryptedBertLayer``) on the harness Recryptor refresh, as
+  ``tests/test_model.py`` builds the JAX one, with weights from
+  ``load_reference_layer`` and domains from ``calibrate_domains``.
+
+``head_oracle`` and ``layer_oracle`` compute the same functions, with the
+circuits' own polynomial approximations, in float64 numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Callable
 
 import numpy as np
@@ -21,16 +28,20 @@ from .encoder import Encoder
 from .encrypt import Encryptor, Decryptor
 from .evaluator import Evaluator
 from .keys import KeyGenerator
+from .models.bert import (BertDims, BertLayerWeights, DepthPlan,
+                          EncryptedBertLayer, calibrate_domains,
+                          galois_steps_for_model, load_reference_layer,
+                          plain_bert_layer)
 from .ops.matmul import (CPMM, ccmm_col_to_diag, ccmm_diag_to_col,
-                         ccmm_col_steps, ccmm_diag_steps, _bsgs_split)
-from .ops.nonlinear import softmax_diag, diag_valid_masks
+                         ccmm_col_steps, ccmm_diag_steps, col_chunk_for)
+from .ops.nonlinear import (softmax_diag, diag_valid_masks, fit_gelu_cheb,
+                            fit_rsqrt_line)
 from .ops.packing import batch_input, bias_vec, unpack_batch
 from .params import Context, head_config, resolve_device
+from .utils.recrypt import Recryptor
 
 MAX_VAL = 2.0           # softmax shift: scores enter exp as x - MAX_VAL
 EPS = 1e-5              # added to the exp-sum before the inverse
-# bound on the rotated operands ccmm_col_to_diag holds per column chunk
-ROT_OPERAND_BYTES = 4 << 30
 
 
 @dataclasses.dataclass
@@ -55,14 +66,6 @@ class Head:
     def oracle(self) -> np.ndarray:
         return head_oracle(self.xs, self.weights, self.lens, self.exp_r,
                            self.inv_iters, self.num_row)
-
-
-def col_chunk_for(ctx: Context, n_q: int, num_row: int) -> int:
-    """Columns per ccmm_col_to_diag chunk: the g+b rotated copies of a
-    chunk, [g+b, chunk, 2, n_q, N] int64, stay within ROT_OPERAND_BYTES."""
-    g, b = _bsgs_split(num_row)
-    per_col = (g + b) * 2 * n_q * ctx.cfg.N * 8
-    return max(1, ROT_OPERAND_BYTES // per_col)
 
 
 def balanced_input_scale(ctx: Context, exp_r: int, inv_iters: int) -> float:
@@ -189,4 +192,184 @@ def head_oracle(xs: np.ndarray, weights: dict, lens, exp_r: int,
         for i in range(inv_iters + 1):
             inv *= 1.0 + y ** (1 << i)
         out[j, :n] = (e / num_row * inv[:, None]) @ v
+    return out
+
+
+@dataclasses.dataclass
+class Layer:
+    fn: Callable[[torch.Tensor], Ciphertext]   # x data -> layer output
+    x_data: torch.Tensor       # encrypted input [d_model, 2, n_att, N]
+    ctx: Context
+    decryptor: Decryptor
+    layer: EncryptedBertLayer
+    xs: np.ndarray             # plaintext input [input_count, num_row, d]
+    weights: BertLayerWeights
+    lens: np.ndarray           # valid tokens per input
+    dims: BertDims
+    plan: DepthPlan
+    max_val: float             # the softmax shift (calibrated max table)
+    domains: dict              # ln1, ln2 (S ranges) and gelu (half-width)
+    setup_s: dict              # host seconds of the set-up, by part
+    refresh_log: list          # per refresh: (batch shape, n_q, start on
+    #                            time.perf_counter, seconds)
+
+    def decode(self, out: Ciphertext) -> np.ndarray:
+        """Decrypt the layer output -> [input_count, num_row, d_model].
+
+        Decrypts the bottom n_q0 + 1 limbs only: the centered message
+        (|m| ~ 2^55 at LayerNorm scale) is far inside their product's half
+        (2^85 at logN 15), so it is the integer decryption at every limb
+        gives, and the host's CRT decode, which costs per limb, is ~9x
+        shorter at the layer's 28."""
+        n_q = min(out.n_q, self.ctx.n_q0 + 1)
+        low = out.with_data(out.data[..., :n_q, :])
+        sm = self.decryptor.decrypt(low).real
+        return unpack_batch(sm, self.dims.num_x, self.dims.num_row,
+                            len(self.lens))
+
+    def oracle(self) -> np.ndarray:
+        return layer_oracle(self.xs, self.weights, self.lens, self.dims,
+                            self.plan, self.max_val, self.domains)
+
+    def plain(self) -> np.ndarray:
+        """``plain_bert_layer`` on each input's valid tokens; rows past a
+        length are 0."""
+        out = np.zeros_like(self.xs)
+        for j, n in enumerate(self.lens):
+            out[j, :n] = plain_bert_layer(self.xs[j, :n], self.weights,
+                                          self.dims)
+        return out
+
+
+def build_layer(logN: int, n_data_levels: int, dims: BertDims,
+                plan: DepthPlan, input_count: int, seed: int = 11,
+                device="cuda") -> Layer:
+    """Keys, weights, calibration and the encrypted input of one encoder
+    layer on the harness Recryptor.
+
+    The context is ``head_config(logN, n_data_levels)``; keys, the input
+    lengths (in [num_row/2, num_row]) and the N(0, 0.5) tokens are drawn
+    from ``seed`` in ``build_head``'s order; the weights are
+    ``load_reference_layer(0, dims)``.  The softmax max table and the
+    LayerNorm and GELU domains come from ``calibrate_domains`` over this
+    batch.  The input is encoded at ctx.scale, as the JAX layer's test
+    encodes it."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    ctx = Context(head_config(logN, n_data_levels), device=dev)
+    if dims.num_x * dims.num_row != ctx.cfg.slots:
+        raise ValueError(f"num_x*num_row = {dims.num_x * dims.num_row} != "
+                         f"{ctx.cfg.slots} slots")
+    enc = Encoder(ctx)
+    kg = KeyGenerator(ctx, seed=seed, device=dev)
+    gks = kg.gen_galois_keys(steps=galois_steps_for_model(dims))
+    encryptor = Encryptor(ctx, enc, kg.gen_public_key(), kg, device=dev)
+    decryptor = Decryptor(ctx, enc, kg.sk, device=dev)
+    ev = Evaluator(ctx, relin_key=kg.gen_relin_key(), galois_keys=gks,
+                   device=dev)
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(dims.num_row // 2, dims.num_row + 1,
+                        size=input_count)
+    xs = rng.normal(0, 0.5, (input_count, dims.num_row, dims.d_model))
+    for j, n in enumerate(lens):
+        xs[j, n:] = 0.0
+    w = load_reference_layer(0, dims)
+    domains, max_table = calibrate_domains(xs, lens, [w], dims)
+    rec = Recryptor(encryptor, decryptor)
+    refresh_log = []
+
+    def refresh(ct: Ciphertext, n_q: int) -> Ciphertext:
+        _sync(dev)
+        t = time.perf_counter()
+        out = rec.recrypt(ct, n_q=n_q)
+        _sync(dev)
+        refresh_log.append((ct.batch_shape, n_q, t,
+                            time.perf_counter() - t))
+        return out
+
+    layer = EncryptedBertLayer(
+        ev, enc, w, dims, plan, lens, max_table=max_table[0],
+        refresh=refresh, ln1_domain=domains[0]["ln1"],
+        ln2_domain=domains[0]["ln2"], gelu_domain=domains[0]["gelu"])
+    _sync(dev)
+    t1 = time.perf_counter()
+    x0 = batch_input(encryptor, xs, dims.num_x, dims.num_row,
+                     n_q=layer.n_att)
+    _sync(dev)
+    setup_s = {"keys_weights": t1 - t0, "encrypt": time.perf_counter() - t1}
+
+    def layer_fn(x_data: torch.Tensor) -> Ciphertext:
+        return layer(Ciphertext(x_data, ctx.scale, True))
+
+    return Layer(layer_fn, x0.data, ctx, decryptor, layer, xs, w,
+                 np.asarray(lens), dims, plan, max_table[0], domains[0],
+                 setup_s, refresh_log)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def layer_oracle(xs: np.ndarray, w: BertLayerWeights, lens, dims: BertDims,
+                 plan: DepthPlan, max_val: float, domains: dict,
+                 eps: float = EPS) -> np.ndarray:
+    """The layer in float64 with the circuit's approximations, over every
+    row (padding rows too, as the circuit computes them):
+    - masked Q/K/V (rows past a length are 0) and the exp as
+      (1 + x/2^r)^(2^r) on x = QK^T - max_val over valid entries, times
+      the valid mask / num_row; the row sum plus eps/num_row; the
+      Goldschmidt product prod_{i<=inv_iters} (1 + y^(2^i)), y = 1 - sum;
+    - masked W_O, the residual, and LayerNorm in its S-domain form
+      (d_j = C x_j - sum x, S = sum d_j^2, S scaled by 1/hi into the
+      rsqrt's domain) with the rsqrt of ``layernorm``: fit_rsqrt_line, then
+      ln_newton Newton and ln_gold Goldschmidt steps;
+    - masked W_I, GELU as the Chebyshev fit of degree gelu_degree on
+      [-domain, domain], masked W_F, the residual and LayerNorm again.
+    Returns [input_count, num_row, d_model]."""
+    R, hd, C = dims.num_row, dims.head_dim, dims.d_model
+    r = 1 << plan.exp_r
+    gelu_c = fit_gelu_cheb(domains["gelu"], plan.gelu_degree)
+
+    def layernorm(v, gamma, beta, var_domain):
+        lo, hi = var_domain
+        d = C * v - v.sum(-1, keepdims=True)
+        sn = (d * d).sum(-1, keepdims=True) / hi
+        a, b = fit_rsqrt_line(lo / hi, 1.0)
+        y = a * sn + b
+        for _ in range(plan.ln_newton):
+            y = y * (1.5 - 0.5 * sn * y * y)
+        if plan.ln_gold:
+            g, h = sn * y, 0.5 * y
+            for _ in range(plan.ln_gold):
+                r1 = 1.5 - g * h
+                g, h = g * r1, h * r1
+            y = 2 * h
+        return d * y * gamma * np.sqrt(C / hi) + beta
+
+    out = np.zeros(xs.shape[:2] + (C,))
+    for j, n in enumerate(np.asarray(lens)):
+        x = xs[j]
+        m = (np.arange(R) < n).astype(np.float64)[:, None]
+        valid = m * m.T
+        q = (x @ w.wq / np.sqrt(hd) + w.bq / np.sqrt(hd)) * m
+        k = (x @ w.wk + w.bk) * m
+        v = (x @ w.wv + w.bv) * m
+        heads = []
+        for h in range(dims.num_heads):
+            sl = slice(h * hd, (h + 1) * hd)
+            e = (1.0 + (q[:, sl] @ k[:, sl].T - max_val * valid) / r) ** r
+            e = e * valid / R
+            y = 1.0 - (e.sum(1) + eps / R)
+            inv = np.ones(R)
+            for i in range(plan.inv_iters + 1):
+                inv *= 1.0 + y ** (1 << i)
+            heads.append((e * inv[:, None]) @ v[:, sl])
+        att = (np.concatenate(heads, -1) @ w.wo + w.bo) * m
+        h1 = layernorm(att + x, w.ln1_g, w.ln1_b, domains["ln1"])
+        f = (h1 @ w.wi + w.bi) * m
+        g = np.polynomial.chebyshev.chebval(f / domains["gelu"], gelu_c)
+        f2 = (g @ w.wf + w.bf) * m
+        out[j] = layernorm(f2 + h1, w.ln2_g, w.ln2_b, domains["ln2"])
     return out

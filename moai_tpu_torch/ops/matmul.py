@@ -21,7 +21,7 @@ import torch
 from .. import mod_arith as ma
 from ..ciphertext import Ciphertext, Plaintext
 from ..encoder import Encoder
-from ..encrypt import encode_ntt
+from ..encrypt import encode_ntt, rounded_to_ntt
 from ..evaluator import Evaluator
 from ..modmat import mod_matmul, host_weight_digits, host_bucket_consts
 
@@ -29,6 +29,18 @@ from ..modmat import mod_matmul, host_weight_digits, host_bucket_consts
 def _bsgs_split(m: int) -> tuple[int, int]:
     g = int(np.ceil(np.sqrt(m)))
     return g, int(np.ceil(m / g))
+
+
+# bound on the rotated operands ccmm_col_to_diag holds per column chunk
+ROT_OPERAND_BYTES = 4 << 30
+
+
+def col_chunk_for(ctx, n_q: int, num_row: int) -> int:
+    """Columns per ccmm_col_to_diag chunk: the g+b rotated copies of a
+    chunk, [g+b, chunk, 2, n_q, N] int64, stay within ROT_OPERAND_BYTES."""
+    g, b = _bsgs_split(num_row)
+    per_col = (g + b) * 2 * n_q * ctx.cfg.N * 8
+    return max(1, ROT_OPERAND_BYTES // per_col)
 
 
 def _bsgs_steps(num_x: int, num_row: int) -> list[int]:
@@ -69,6 +81,13 @@ class CPMM:
     With ``mask`` (the tracing vector over slots) the weights are encoded at
     the top single prime and the mask at the following prime, so the masked
     product still costs exactly one composite level.
+
+    Output columns are independent, so ``cols`` (a slice of I) computes
+    only those columns, with the same residues.  ``product`` over a slice
+    of the rows J (the input holding only those ciphertexts) gives partial
+    sums; their modular sum, passed to ``finish``, is the full product,
+    with the same residues (the rescale of a sum is not the sum of
+    rescales, so partial sums meet before ``finish``).
     """
 
     def __init__(self, ev: Evaluator, encoder: Encoder, W: np.ndarray,
@@ -98,41 +117,62 @@ class CPMM:
         self.bucket_mul = torch.from_numpy(host_bucket_consts(qs)).to(
             ev.device)
         self.bias = bias
-        self._bias_pt = None
-        self._bias_key = None
+        # the bias plaintext's rounded coefficients [I, N] (host), encoded
+        # to residues per call: [I, n_q, N] residues of a wide layer would
+        # hold gigabytes on the card
+        self._bias_rounded = None
+        self._bias_scale = None
         self.encoder = encoder
         self.bias_mask = mask
 
-    def __call__(self, x: Ciphertext, rescale: bool = True) -> Ciphertext:
-        """x: Ciphertext with leading batch axis J.  Output batch axis I."""
-        ev = self.ev
+    def __call__(self, x: Ciphertext, rescale: bool = True,
+                 cols: slice | None = None) -> Ciphertext:
+        """x: Ciphertext with leading batch axis J.  Output batch axis I
+        (the columns ``cols`` of W only, when given)."""
+        return self.finish(self.product(x, cols=cols), x.scale,
+                           rescale=rescale, cols=cols)
+
+    def product(self, x: Ciphertext, rows: slice | None = None,
+                cols: slice | None = None) -> torch.Tensor:
+        """sum_j x[j] W[j, i] mod q over the rows ``rows`` of W (x holds
+        just those ciphertexts) and its columns ``cols``: [I, P, n_q, N]."""
         if x.n_q != self.n_q:
             raise ValueError(f"CPMM built for n_q={self.n_q}, got {x.n_q}")
-        dv = ev.dev
-        out = mod_matmul(x.data, self.w_digits, self.bucket_mul,
-                         dv["q"][:self.n_q], dv["rinv"][:self.n_q])
-        ct = Ciphertext(out, x.scale * self.w_scale, True)
+        w = self.w_digits
+        if rows is not None:
+            w = w[:, :, rows]
+        if cols is not None:
+            w = w[..., cols]
+        dv = self.ev.dev
+        return mod_matmul(x.data, w, self.bucket_mul, dv["q"][:self.n_q],
+                          dv["rinv"][:self.n_q])
+
+    def finish(self, data: torch.Tensor, x_scale: float, rescale: bool = True,
+               cols: slice | None = None) -> Ciphertext:
+        """Mask, rescale and bias of a product from ``product``."""
+        ev = self.ev
+        ct = Ciphertext(data, x_scale * self.w_scale, True)
         if self.mask_pt is not None:
             ct = ev.multiply_plain(ct, self.mask_pt)
         if rescale:
             ct = ev.rescale(ev.rescale(ct))
             if self.bias is not None:
-                ct = ev.add_plain(ct, self._bias(ct))
+                ct = ev.add_plain(ct, self._bias(ct, cols))
         return ct
 
-    def _bias(self, ct: Ciphertext) -> Plaintext:
-        key = (ct.n_q, round(ct.scale))
-        if self._bias_key != key:
+    def _bias(self, ct: Ciphertext, cols: slice | None) -> Plaintext:
+        if self._bias_scale != ct.scale:
             slots = self.ev.ctx.cfg.slots
             vecs = np.broadcast_to(np.asarray(self.bias)[:, None],
                                    (self.out_dim, slots)).copy()
             if self.bias_mask is not None:
                 vecs *= self.bias_mask[None, :]
-            self._bias_pt = Plaintext(
-                encode_ntt(self.ev.ctx, self.encoder, vecs, ct.scale, ct.n_q),
-                ct.scale)
-            self._bias_key = key
-        return self._bias_pt
+            self._bias_rounded = self.encoder.encode_coeffs(vecs, ct.scale)
+            self._bias_scale = ct.scale
+        rounded = self._bias_rounded if cols is None else \
+            self._bias_rounded[cols]
+        return Plaintext(rounded_to_ntt(self.ev.ctx, self.encoder, rounded,
+                                        ct.n_q), ct.scale)
 
 
 def ccmm_col_to_diag(ev: Evaluator, x: Ciphertext, w: Ciphertext,

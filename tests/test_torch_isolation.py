@@ -37,11 +37,11 @@ def test_every_module_imports_without_jax():
             "print('ok')\n")
     r = _run(code)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
-    assert len(MODULES) >= 17
+    assert len(MODULES) >= 26
 
 
 @pytest.mark.parametrize("entry", ["Context", "KeyGenerator", "Encryptor",
-                                   "Evaluator", "build_head"])
+                                   "Evaluator", "build_head", "build_layer"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -49,7 +49,8 @@ def test_entry_points_default_to_cuda(entry):
     from moai_tpu_torch.keys import KeyGenerator
     from moai_tpu_torch.encrypt import Encryptor
     from moai_tpu_torch.evaluator import Evaluator
-    from moai_tpu_torch.entry import build_head
+    from moai_tpu_torch.entry import build_head, build_layer
+    from moai_tpu_torch.models.bert import BertDims, DepthPlan
     ctx = Context(_test_config(), device="cpu")
     calls = {
         "Context": lambda: Context(_test_config()),
@@ -57,6 +58,8 @@ def test_entry_points_default_to_cuda(entry):
         "Encryptor": lambda: Encryptor(ctx, None, None, None),
         "Evaluator": lambda: Evaluator(ctx),
         "build_head": lambda: build_head(9, 12, 32, 8, 8, 8, 2, 2, 3),
+        "build_layer": lambda: build_layer(
+            9, 10, BertDims(32, 8, 8, 2, 4, 16), DepthPlan(2, 2, 1, 0, 8), 3),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
