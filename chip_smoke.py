@@ -1,16 +1,29 @@
 """Smoke run of moai_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [bootstrap] [head] [layer]
+
+With no argument it runs every phase, in this order; naming phases runs
+only those.
 
 1. Builds the NTT kernels (moai_tpu_torch/csrc/ntt.cu) with nvcc for sm_90a.
-2. N=2^16: builds a flagship_config context (87 Q+P primes) and holds each
-   kernel against its plain PyTorch version over all its limbs and on limb
-   slices; they must be equal (torch.equal).  Times both at [8, 2, 87,
+2. Bootstraps at N=2^16 on flagship_config (entry.build_bootstrap: 32768
+   slots, L 74 = q0 pair + 20 data pairs + 16 boot pairs, K 13, dnum 6,
+   Galois keys for every CoeffToSlot/SlotToCoeff step and the conjugation,
+   held as int32): set-up seconds (context, key generation, the
+   Bootstrapper with its encoded diagonals, encryption); then holds each
+   kernel against its plain PyTorch version over all 87 limbs of this
+   context and on limb slices (torch.equal), and times both at [8, 2, 87,
    2^16] beside the memory bound (one call per CUDA-event pair, and the
-   device time per call of each of its two kernels from torch.profiler),
-   and drives ntt/intt (the dispatching entry points) once with the launch
-   counts set to 0 just before: each kernel must have launched, and
-   intt(ntt(x)) == x.
+   device time per call of each of its two kernels from torch.profiler);
+   then one pass of make_refresh over BOOT_BATCH ciphertexts of U(-0.8,
+   0.8) slot values, each its own, from n_q0 + 2 limbs to the 42-limb data
+   chain, with the launch counts set to 0 just before (both kernels must
+   have launched): seconds per pass, per ciphertext and per stage (ModRaise,
+   each CoeffToSlot level, EvalMod real and imaginary, each SlotToCoeff
+   level, the card synchronized between stages), the device's busy share
+   and top kernels (torch.profiler), peak memory; then the decrypted
+   slots against the input (gated, real and imaginary parts), and ModRaise
+   on the first ciphertext against the plain path on the CPU (reported).
 3. Runs the encrypted attention head at BERT-base head width (d_model 768,
    head_dim 64, 128 tokens, 128 interleaved inputs, logN 15, L 34) with
    weights drawn at BERT-base magnitude: after set-up, the same check and
@@ -32,14 +45,14 @@
 
 Prints a {"kernels": [...]} line, one row per kernel and path: each row's
 check and timings come from that path's context and its launches from
-that path's run (the N=2^16 rows from the ntt/intt entry-point run), then
-the card's name and power limit, and as its last line {"ok": true,
-"device": {...}}.  Exits non-zero, printing no result, without a CUDA
-card or without the package beside it.
+that path's run, then the card's name and power limit, and as its last
+line {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
+without a CUDA card or without the package beside it.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -75,6 +88,12 @@ LAYER_ATOL = 1e-3
 LAYER_STAGES = ["heads: Q/K, QK^T, exp, sums", "heads: inverse, "
                 "softmax x V; W_O", "-", "residual, LayerNorm 1",
                 "FFN: W_I, GELU, W_F", "-", "residual, LayerNorm 2"]
+# The bootstrap phase: ciphertexts per pass, and the limit on the decrypted
+# output against the input slots, absolute, for the real and the imaginary
+# parts: the JAX package's own bootstraps record 9.4e-4 (real parts) at
+# logN 15 and 9.3e-5 on a mixed data/boot chain.
+BOOT_BATCH = 2
+BOOT_ATOL = 2e-3
 KERNELS = {
     "ntt_fwd": "moai_tpu/pallas_ntt.py:282",
     "ntt_inv": "moai_tpu/pallas_ntt.py:301",
@@ -180,35 +199,6 @@ def check_kernels(ctx) -> dict:
     return res
 
 
-def flagship_ntt() -> dict:
-    """The N=2^16 phase on a flagship_config context: kernels against the
-    plain transforms and timed, then the ntt/intt entry points once with
-    the counts set to 0 just before and read just after; each kernel's
-    measurements carry the launches of that run."""
-    from moai_tpu_torch import ntt as nt
-    from moai_tpu_torch import ntt_cuda
-    from moai_tpu_torch.params import Context, flagship_config
-    t0 = time.time()
-    ctx = Context(flagship_config(), device="cuda")
-    log(f"flagship context (logN 16, L={ctx.L} K={ctx.K}) "
-        f"{time.time() - t0:.1f} s")
-    kern = check_kernels(ctx)
-    tb = ctx.dev["ntt"]
-    x = random_residues(tb["q"], (2, 2), ctx.cfg.N)
-    ntt_cuda.reset_launches()
-    back = nt.intt(nt.ntt(x, tb), tb)
-    torch.cuda.synchronize()
-    counts = dict(ntt_cuda.launches)
-    log(f"N=2^16 entry points: launches {counts}")
-    if counts != {"ntt_fwd": 1, "ntt_inv": 1}:
-        raise SystemExit("ntt/intt at N=2^16 did not go through the kernels")
-    if not torch.equal(back, x):
-        raise SystemExit("intt(ntt(x)) != x at N=2^16")
-    for k in KERNELS:
-        kern[k]["launches"] = counts[k]
-    return kern
-
-
 def profile_pass(fn):
     """fn() under torch.profiler (device activity only, which traces each
     kernel and leaves the host's ops alone): returns fn's result, and the
@@ -233,6 +223,113 @@ def profile_pass(fn):
                          for s, n, k in rows[:10]],
                  "ntt": [{"s": s, "calls": n, "name": kernel_name(k)}
                          for s, n, k in rows if "ntt_" in k]}
+
+
+def check_modraise(boot) -> None:
+    """ModRaise on the card against the plain path on the CPU, on the first
+    ciphertext: its float32 CRT estimate should round every coefficient as
+    the CPU does (a rounding tie may differ; EvalMod absorbs it).  Prints
+    the first differing index, if any."""
+    from moai_tpu_torch.boot.bootstrap import Bootstrapper
+    from moai_tpu_torch.ciphertext import Ciphertext
+    from moai_tpu_torch.encoder import Encoder
+    from moai_tpu_torch.evaluator import Evaluator
+    from moai_tpu_torch.params import Context
+    t0 = time.time()
+    ctx = boot.ctx
+    x = Ciphertext(boot.x_data[0, :, :ctx.n_q0].contiguous(), ctx.scale)
+    got = boot.bootstrapper.modraise(x).data.cpu()
+    cpu = Context(ctx.cfg, device="cpu")
+    want = Bootstrapper(Evaluator(cpu, device="cpu"), Encoder(cpu)).modraise(
+        Ciphertext(x.data.cpu(), x.scale)).data
+    diff = (got != want).nonzero()
+    log(f"ModRaise on the card vs the CPU, [2, {ctx.L}, 2^{ctx.cfg.logN}]: "
+        + ("equal" if len(diff) == 0 else
+           f"{len(diff)} residues differ, the first at "
+           f"{diff[0].tolist()}: {int(got[tuple(diff[0])])} vs "
+           f"{int(want[tuple(diff[0])])}") + f" ({time.time() - t0:.1f} s)")
+
+
+def run_bootstrap() -> dict:
+    """The bootstrap phase: set-up, kernels against plain on its context,
+    one timed and traced pass with the launch counts set to 0 just before,
+    the check against the input.  Returns the kernels' measurements with
+    the pass's launches."""
+    from moai_tpu_torch import ntt_cuda
+    from moai_tpu_torch.entry import build_bootstrap
+    from moai_tpu_torch.params import flagship_config
+    t0 = time.time()
+    boot = build_bootstrap(flagship_config(), BOOT_BATCH, device="cuda")
+    torch.cuda.synchronize()
+    ctx, bt = boot.ctx, boot.bootstrapper
+    log(f"bootstrap set-up {time.time() - t0:.1f} s: "
+        f"{json.dumps(boot.setup_s)} (seconds: context; key generation, "
+        f"public + relinearization + {len(bt.galois_steps()) + 1} Galois "
+        f"keys; Bootstrapper with its encoded diagonals; encryption); "
+        f"L={ctx.L} K={ctx.K} dnum={ctx.dnum}, bootstrap levels "
+        f"{bt.levels} (CoeffToSlot {len(bt.c2s_levels)}, EvalMod "
+        f"{bt.mr.levels}, SlotToCoeff {len(bt.s2c_levels)}), diagonals per "
+        f"level {[len(v) for v in bt.c2s_levels + bt.s2c_levels]}, arcsin "
+        f"degree {bt.mr.arcsin_deg}; EvalMod cosine degree "
+        f"{bt.mr.degree}, max error at the integer centres "
+        f"{np.abs(bt.mr.centre_error()).max():.3e}, the most it can add "
+        f"coherently to a slot {bt.coherent_error_bound():.3e}; x "
+        f"{tuple(boot.x_data.shape)}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+
+    kern = check_kernels(ctx)
+
+    stages, mark = [], [0.0]
+
+    def on_stage(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages.append((name, round(now - mark[0], 3)))
+        mark[0] = now
+
+    bt.on_stage = on_stage
+    bt.encode_s = 0.0
+    ntt_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    mark[0] = time.perf_counter()
+    out, prof = profile_pass(lambda: boot.fn(boot.x_data))
+    bt.on_stage = None
+    secs = prof["wall_s"]
+    launches = dict(ntt_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    log(f"bootstrap: {secs:.2f} s per pass of {BOOT_BATCH} ciphertexts, "
+        f"{secs / BOOT_BATCH:.3f} s per ciphertext; by stage (s): "
+        f"{json.dumps(stages)}; host encoding of diagonals in the pass "
+        f"{bt.encode_s:.3f} s; device busy {prof['device_busy_s']:.2f} s "
+        f"({100 * prof['device_busy_share']:.1f}%); peak "
+        f"{peak / 2**30:.2f} GiB allocated, {peak_reserved / 2**30:.2f} GiB "
+        f"reserved; output n_q={out.n_q}; launches {launches}")
+    log("bootstrap profile:", json.dumps(prof))
+    for k in KERNELS:
+        if launches[k] <= 0:
+            raise SystemExit(f"{k} was not launched by the bootstrap")
+        kern[k]["launches"] = launches[k]
+    if out.n_q != ctx.L - 2 * bt.levels or out.n_q != boot.n_out:
+        raise SystemExit(f"bootstrap output at {out.n_q} limbs, not "
+                         f"{ctx.L - 2 * bt.levels}")
+    check_modraise(boot)
+
+    got = boot.decode(out)
+    del out
+    want = boot.values
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise SystemExit(f"bootstrap output {got.shape} not finite / not "
+                         f"{want.shape}")
+    err_re = float(np.abs(got.real - want).max())
+    err_im = float(np.abs(got.imag).max())
+    log(f"bootstrap vs its input over {want.size} slots: max |real - in| "
+        f"{err_re:.3e}, max |imag| {err_im:.3e} (tolerance {BOOT_ATOL}); "
+        f"per ciphertext real {np.abs(got.real - want).max(-1).tolist()}")
+    if max(err_re, err_im) > BOOT_ATOL:
+        raise SystemExit("bootstrap output outside tolerance")
+    return kern
 
 
 def bert_weights(rng, d_model: int, head_dim: int) -> dict:
@@ -385,11 +482,19 @@ def main() -> int:
     log(f"card: {name_power}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
-    paths = {"ntt/intt entry points": flagship_ntt()}
-    torch.cuda.empty_cache()
-    paths["head"] = run_head()
-    torch.cuda.empty_cache()
-    paths["layer"] = run_layer()
+    phases = {"bootstrap": run_bootstrap, "head": run_head,
+              "layer": run_layer}
+    chosen = sys.argv[1:] or list(phases)
+    unknown = set(chosen) - set(phases)
+    if unknown:
+        print(f"chip_smoke: unknown phases {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
+    paths = {}
+    for name in chosen:
+        paths[name] = phases[name]()
+        gc.collect()
+        torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": "moai_tpu_torch/csrc/ntt.cu",

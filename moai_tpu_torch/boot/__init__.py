@@ -1,3 +1,3 @@
-"""Bootstrapping.  So far only the Chebyshev evaluators of ``evalmod``,
-which GELU and the rsqrt use; CoeffToSlot, EvalMod and SlotToCoeff come
-with the bootstrap slice."""
+"""Bootstrapping: the Chebyshev evaluators and ModReducer (``evalmod``),
+the CoeffToSlot/SlotToCoeff linear transforms (``linear``), and the
+Bootstrapper with its ``make_refresh`` adapter (``bootstrap``)."""

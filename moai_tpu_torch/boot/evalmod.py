@@ -2,11 +2,11 @@
 
 Port of the evaluators of ``moai_tpu/boot/evalmod.py``: ``cheb_eval``
 (doubling ladder), ``cheb_eval_bsgs`` (baby-step/giant-step quotient and
-remainder recursion) and their host helpers, plus the numpy cosine fit
-that ``minimax.fit_cos_remez`` compares against.  ``ModReducer`` comes
-with the bootstrap slice.  The JAX version serializes the BSGS subtrees
-with ``mod_arith.seq`` to bound XLA's schedule; eager PyTorch runs them in
-program order, so the port has no counterpart.
+remainder recursion) and their host helpers, the numpy cosine fit, and
+``ModReducer``, the bootstrap's homomorphic t -> sin(2*pi*t).  The JAX
+version serializes the BSGS subtrees with ``mod_arith.seq`` to bound XLA's
+schedule; eager PyTorch runs them in program order, so the port has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -188,3 +188,89 @@ def cheb_eval_bsgs(ev: Evaluator, x: Ciphertext, coeffs: np.ndarray
         s <<= 1
         _cheb_T(ev, T, s)
     return _bsgs_rec(ev, T, g, coeffs, x.scale)
+
+
+class ModReducer:
+    """Homomorphic t -> sin(2*pi*t) for t = m*Delta/q0 + I, |I| <= K.
+
+    The deg-1 arcsin step and the /(2*pi) are folded into downstream
+    scale bookkeeping by the Bootstrapper."""
+
+    def __init__(self, K: int = 25, eps: float = 2.0 ** -7,
+                 degree: int = 59, double_angles: int = 2,
+                 arcsin_deg: int = 1):
+        """``arcsin_deg``: 1 folds the linear arcsin term into downstream
+        scaling; 3 adds the homomorphic cubic correction y + y^3/6 (+2
+        levels), cutting the residual from O(y^3) to O(y^5) — needed when
+        |m| >> 1 widens the physical EvalMod interval."""
+        if arcsin_deg not in (1, 3):
+            raise ValueError(f"arcsin_deg must be 1 or 3, not {arcsin_deg}")
+        self.K, self.eps = K, eps
+        self.degree, self.double_angles = degree, double_angles
+        self.arcsin_deg = arcsin_deg
+        self.coef, self.x_max = fit_cos_multi_interval(
+            K, eps, degree, double_angles)
+
+    @property
+    def levels(self) -> int:
+        """Composite levels consumed (input prescale + ladder + coeff
+        mult + double angles + optional cubic arcsin)."""
+        deg = self.degree
+        ladder = (deg.bit_length() - 1) + 1
+        return 1 + ladder + 1 + self.double_angles + \
+            (2 if self.arcsin_deg >= 3 else 0)
+
+    def centre_error(self) -> np.ndarray:
+        """The fit's error at the integer centres t = I, |I| <= K, through
+        the double angles (float64): what EvalMod adds to a coefficient
+        whose message is 0, before the optional cubic arcsin."""
+        da = 1 << self.double_angles
+        x = (np.arange(-self.K, self.K + 1) - 0.25) / (da * self.x_max)
+        c = np.polynomial.chebyshev.chebval(x, self.coef)
+        for _ in range(self.double_angles):
+            c = 2 * c * c - 1
+        return c
+
+    def __call__(self, ev: Evaluator, t: Ciphertext,
+                 pre_scale: float = 1.0,
+                 work_scale: float | None = None) -> Ciphertext:
+        """t (slots hold m*Delta/q0 + I, possibly pre-divided by
+        ``pre_scale``): returns ct whose slots are sin(2*pi*t) at the
+        working scale.  ``pre_scale`` multiplies the input first (used to
+        fold the 1/2 of the real/imag split in for free).
+
+        ``work_scale`` is the scale the Chebyshev ladder lands at.  It
+        MUST match the pair product of the levels the ladder actually
+        consumes: on a mixed chain (26-bit data pairs + 29-bit boot
+        pairs, flagship_config) every rescale inside the bootstrap region
+        divides by a ~2^58 boot pair, so landing at ctx.scale (the 2^52
+        DATA pair product) shrinks the true scale by the ratio at every
+        squaring until the message sinks below the rescale rounding floor
+        while the tracked metadata stays "exact" (the JAX package records
+        it as an error of 1.7e35 at N=2^16).  Defaults to the pair product
+        at the input's level."""
+        da = 1 << self.double_angles
+        if work_scale is None:
+            work_scale = ev.level_pair_scale(t.n_q)
+        # x = (t - 0.25)/(da * x_max): one const mult + const add.  The
+        # multiply also drops the ciphertext from its reinterpreted scale
+        # (~q0) to the working scale, keeping the ladder's squares
+        # scale-stable.
+        a = pre_scale / (da * self.x_max)
+        x = ev.rescale_pair(ev.mul_const_to(t, a, work_scale))
+        x = ev.add_const(x, -0.25 / (da * self.x_max))
+        c = cheb_eval_bsgs(ev, x, self.coef)
+        del x
+        for _ in range(self.double_angles):
+            c = ev.add_const(ev.mul_int(ev.square_rescale(c), 2), -1.0)
+        if self.arcsin_deg >= 3:
+            # arcsin(y) ~= y + y^3/6: evaluate y^2 and y/6 in parallel
+            # (both one level), multiply, add — 2 levels total.  c6's
+            # landing scale is chosen so y2*c6 rescales EXACTLY to c.scale.
+            y2 = ev.square_rescale(c)
+            pair2 = ev.level_pair_scale(y2.n_q)
+            c6 = ev.rescale_pair(ev.mul_const_to(
+                c, 1.0 / 6.0, c.scale * pair2 / y2.scale))
+            y3 = ev.mul_relin_rescale(y2, c6)
+            c = ev.add(*ev.align(c, y3))
+        return c

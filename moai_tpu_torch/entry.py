@@ -1,4 +1,5 @@
-"""The encrypted attention head and the encrypted encoder layer, end to end.
+"""The encrypted attention head, the encrypted encoder layer and the
+bootstrap, end to end.
 
 - ``build_head``: port of ``__graft_entry__._build_head``, one full
   encrypted attention head (Q/K/V CPMM -> QK^T CCMM -> polynomial softmax
@@ -8,6 +9,9 @@
   EncryptedBertLayer``) on the harness Recryptor refresh, as
   ``tests/test_model.py`` builds the JAX one, with weights from
   ``load_reference_layer`` and domains from ``calibrate_domains``.
+- ``build_bootstrap``: the CKKS bootstrap (``boot.bootstrap``) through
+  ``make_refresh``, as the layers call it, over a batch of ciphertexts
+  whose slot values are the oracle.
 
 ``head_oracle`` and ``layer_oracle`` compute the same functions, with the
 circuits' own polynomial approximations, in float64 numpy.
@@ -23,6 +27,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .boot.bootstrap import EVALMOD_DEGREE, Bootstrapper, make_refresh
 from .ciphertext import Ciphertext
 from .encoder import Encoder
 from .encrypt import Encryptor, Decryptor
@@ -37,7 +42,7 @@ from .ops.matmul import (CPMM, ccmm_col_to_diag, ccmm_diag_to_col,
 from .ops.nonlinear import (softmax_diag, diag_valid_masks, fit_gelu_cheb,
                             fit_rsqrt_line)
 from .ops.packing import batch_input, bias_vec, unpack_batch
-from .params import Context, head_config, resolve_device
+from .params import CKKSConfig, Context, head_config, resolve_device
 from .utils.recrypt import Recryptor
 
 MAX_VAL = 2.0           # softmax shift: scores enter exp as x - MAX_VAL
@@ -373,3 +378,77 @@ def layer_oracle(xs: np.ndarray, w: BertLayerWeights, lens, dims: BertDims,
         f2 = (g @ w.wf + w.bf) * m
         out[j] = layernorm(f2 + h1, w.ln2_g, w.ln2_b, domains["ln2"])
     return out
+
+
+@dataclasses.dataclass
+class Bootstrap:
+    fn: Callable[[torch.Tensor], Ciphertext]   # x data -> refreshed batch
+    x_data: torch.Tensor       # encrypted input [batch, 2, n_q0 + 2, N]
+    ctx: Context
+    decryptor: Decryptor
+    bootstrapper: Bootstrapper
+    values: np.ndarray         # the input's slot values [batch, slots]
+    n_out: int                 # output limbs: the full data chain
+    setup_s: dict              # host seconds of the set-up, by part
+
+    def decode(self, out: Ciphertext) -> np.ndarray:
+        """Decrypt the bottom n_q0 + 2 limbs of a refreshed batch ->
+        complex slots [batch, slots].  Dropping limbs leaves the message
+        as it is and keeps the host's CRT decode short."""
+        return self.decryptor.decrypt(
+            out.with_data(out.data[..., :self.ctx.n_q0 + 2, :]))
+
+
+def build_bootstrap(cfg: CKKSConfig, batch: int, seed: int = 11,
+                    m_bound: float = 1.0, lt_group: int | None = None,
+                    evalmod_degree: int = EVALMOD_DEGREE,
+                    value_bound: float = 0.8,
+                    device="cuda") -> Bootstrap:
+    """Context, keys, Bootstrapper and the encrypted input of a bootstrap
+    pass over ``batch`` ciphertexts.
+
+    Keys are drawn from ``seed`` in the order of the JAX package's own
+    bootstrap tests (public key, relinearization key, then the Galois keys
+    of ``Bootstrapper.galois_steps()`` with the conjugation), and held as
+    int32 (29.3 GB of Galois keys at N = 2^16, 58.6 GB as int64).  Each
+    ciphertext carries its own U(-value_bound, value_bound) slot values,
+    drawn from ``seed``, encrypted at ctx.scale on n_q0 + 2 limbs: one
+    spare level above q0, as the layers keep at a refresh.  ``fn``
+    refreshes the batch through ``make_refresh(bt, m_bound)`` up to
+    ``n_out`` = L - 2 * bt.levels limbs, the data chain above the
+    bootstrap's own levels."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    ctx = Context(cfg, device=dev)
+    enc = Encoder(ctx)
+    t1 = time.perf_counter()
+    kg = KeyGenerator(ctx, seed=seed, device=dev)
+    encryptor = Encryptor(ctx, enc, kg.gen_public_key(), kg, device=dev)
+    decryptor = Decryptor(ctx, enc, kg.sk, device=dev)
+    ev = Evaluator(ctx, relin_key=kg.gen_relin_key(torch.int32), device=dev)
+    t2 = time.perf_counter()
+    bt = Bootstrapper(ev, enc, m_bound=m_bound, lt_group=lt_group,
+                      evalmod_degree=evalmod_degree)
+    t3 = time.perf_counter()
+    ev.galois_keys = kg.gen_galois_keys(steps=bt.galois_steps(),
+                                        conjugate=True, dtype=torch.int32)
+    _sync(dev)
+    t4 = time.perf_counter()
+    n_out = ctx.L - 2 * bt.levels
+    if n_out < ctx.n_q0 + 2:
+        raise ValueError(f"chain too short: {ctx.L} primes, the bootstrap "
+                         f"spends {2 * bt.levels}")
+    refresh = make_refresh(bt, m_bound=m_bound)
+    values = np.random.default_rng(seed).uniform(
+        -value_bound, value_bound, (batch, cfg.slots))
+    x = encryptor.encrypt_values(values, n_q=ctx.n_q0 + 2)
+    _sync(dev)
+    setup_s = {"context": t1 - t0, "keys": (t2 - t1) + (t4 - t3),
+               "bootstrapper": t3 - t2,
+               "encrypt": time.perf_counter() - t4}
+
+    def boot_fn(x_data: torch.Tensor) -> Ciphertext:
+        return refresh(Ciphertext(x_data, ctx.scale, True), n_out)
+
+    return Bootstrap(boot_fn, x.data, ctx, decryptor, bt, values, n_out,
+                     setup_s)

@@ -8,6 +8,11 @@ context's device; the JAX package's jitted digit step is eager here.
 Hybrid key-switching keys: digit d's key encrypts P * gamma_d * target with
 gamma_d = (Q/D_d) * [(Q/D_d)^{-1} mod D_d].  All key material is in NTT +
 Montgomery form, shape [dnum, 2, L+K, N].
+
+Switching keys may be held as int32 (``dtype=torch.int32``): every residue
+is below 2^30, so the values are the same, in half the memory; the
+key-switch MAC widens them to int64 as it multiplies.  At N=2^16 the
+bootstrap's 107 Galois keys take 29.3 GB this way, 58.6 GB as int64.
 """
 
 from __future__ import annotations
@@ -145,14 +150,16 @@ class KeyGenerator:
             0.0, self.ctx.cfg.noise_std, self.ctx.cfg.N)).astype(np.int64)
 
     def _uniform_ntt(self, lo: int, hi: int) -> torch.Tensor:
-        """Uniform poly sampled directly in the NTT domain, Montgomery form."""
-        primes = self.ctx.all_primes[lo:hi]
+        """Uniform poly sampled directly in the NTT domain, Montgomery form.
+        Per prime, the 64-bit words of ``rng.integers(0, 2**62, N)`` (the
+        same draw from the stream), reduced mod 2^62 and mod q on the
+        device: the JAX package's values, without the host's passes over
+        each word."""
         N = self.ctx.cfg.N
-        out = np.empty((len(primes), N), dtype=np.int64)
-        for i, q in enumerate(primes):
-            r = self.rng.integers(0, 1 << 62, size=N, dtype=np.uint64)
-            out[i] = (r % np.uint64(q)).astype(np.int64)
-        return torch.from_numpy(out).to(self.device)
+        raw = np.stack([self.rng._u64(N) for _ in range(hi - lo)])
+        t = torch.from_numpy(raw.view(np.int64)).to(self.device)
+        t.bitwise_and_((1 << 62) - 1)
+        return t.remainder_(self.ctx.dev["q"][lo:hi].reshape(-1, 1))
 
     def _q(self, lo: int, hi: int):
         dv = self.ctx.dev
@@ -175,9 +182,11 @@ class KeyGenerator:
         return PublicKey(data=torch.stack([b, a]))
 
     # -- key-switching keys ----------------------------------------------
-    def _gen_kswitch(self, target_ntt: torch.Tensor) -> KSwitchKey:
+    def _gen_kswitch(self, target_ntt: torch.Tensor,
+                     dtype: torch.dtype = torch.int64) -> KSwitchKey:
         """Key encrypting P*gamma_d*target per digit; target in NTT
-        Montgomery form over the full basis [L+K, N]."""
+        Montgomery form over the full basis [L+K, N], held as ``dtype``
+        (int64 or int32)."""
         ctx = self.ctx
         nall = ctx.L + ctx.K
         q, rinv = self._q(0, nall)
@@ -202,13 +211,13 @@ class KeyGenerator:
             b = ma.add_mod(ma.neg_mod(
                 ma.mont_mul(a, self.sk.s_ntt, q, rinv), q), e_ntt, q)
             b = ma.add_mod(b, ma.mont_mul(target_ntt, facj, q, rinv), q)
-            keys.append(torch.stack([b, a]))
+            keys.append(torch.stack([b, a]).to(dtype))
         return KSwitchKey(data=torch.stack(keys))
 
-    def gen_relin_key(self) -> KSwitchKey:
+    def gen_relin_key(self, dtype: torch.dtype = torch.int64) -> KSwitchKey:
         q, rinv = self._q(0, self.ctx.L + self.ctx.K)
         s2 = ma.mont_mul(self.sk.s_ntt, self.sk.s_ntt, q, rinv)
-        return self._gen_kswitch(s2)
+        return self._gen_kswitch(s2, dtype)
 
     # -- Galois -----------------------------------------------------------
     def galois_perm(self, galois_elt: int) -> np.ndarray:
@@ -226,9 +235,9 @@ class KeyGenerator:
     def galois_elt_conjugate(self) -> int:
         return 2 * self.ctx.cfg.N - 1
 
-    def gen_galois_keys(self, steps: list[int], conjugate: bool = False
-                        ) -> GaloisKeys:
-        """Keys for the exact rotation-step set."""
+    def gen_galois_keys(self, steps: list[int], conjugate: bool = False,
+                        dtype: torch.dtype = torch.int64) -> GaloisKeys:
+        """Keys for the exact rotation-step set, held as ``dtype``."""
         elts = [self.galois_elt_rotation(s) for s in steps]
         if conjugate:
             elts.append(self.galois_elt_conjugate())
@@ -238,6 +247,6 @@ class KeyGenerator:
             # switching sigma_g(c1) needs a key for sigma_g(s): the same
             # NTT-domain permutation applied to s
             idx = torch.from_numpy(perm).to(self.device)
-            keys[g] = self._gen_kswitch(self.sk.s_ntt[:, idx])
+            keys[g] = self._gen_kswitch(self.sk.s_ntt[:, idx], dtype)
             perms[g] = perm
         return GaloisKeys(keys=keys, perms=perms)

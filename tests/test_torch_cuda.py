@@ -1,5 +1,6 @@
 """moai_tpu_torch on a CUDA card: the NTT kernels against their plain
-versions, and a small encrypted head against the float64 oracle.
+versions, a small encrypted head against the float64 oracle, and a small
+bootstrap against the same bootstrap on the CPU.
 
 This file imports neither JAX nor moai_tpu, so it runs on a GPU host
 without them (tests/conftest.py imports JAX, hence ``--noconftest``):
@@ -15,9 +16,10 @@ import pytest
 import torch
 
 from moai_tpu_torch import ntt_cuda
-from moai_tpu_torch.entry import build_head
+from moai_tpu_torch.entry import build_bootstrap, build_head
 from moai_tpu_torch.ntt import ntt, intt, ntt_plain, intt_plain
-from moai_tpu_torch.params import Context, test_config as _test_config
+from moai_tpu_torch.params import CKKSConfig, Context, \
+    test_config as _test_config
 
 
 @pytest.fixture
@@ -55,3 +57,18 @@ def test_small_head_on_card(card):
     # the CPU run of the same head (tests/test_torch_head.py) is 1.4716e-8
     # from the oracle, and the card's arithmetic is exact
     assert np.abs(got - h.oracle()).max() < 1.5e-8
+
+
+def test_bootstrap_on_card_equals_cpu(card):
+    """The whole bootstrap (logN 9, L 28) gives the CPU's residues on the
+    card: ModRaise's float32 CRT estimate rounds as the plain path does,
+    and every other step is exact."""
+    cfg = CKKSConfig(logN=9, q0_bits=(30.0, 30.0), data_pair_bits=26.0,
+                     n_data_levels=13, dnum=7, special_bits=29.5,
+                     hamming_weight=64)
+    on_card = build_bootstrap(cfg, 2, seed=101, device=card)
+    on_cpu = build_bootstrap(cfg, 2, seed=101, device="cpu")
+    got = on_card.fn(on_card.x_data)
+    want = on_cpu.fn(on_cpu.x_data)
+    assert got.scale == want.scale
+    assert torch.equal(got.data.cpu(), want.data)

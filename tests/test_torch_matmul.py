@@ -35,6 +35,15 @@ NUM_X, NUM_ROW, NUM_INPUTS = 128, 8, 3
 SEED = 5
 
 
+def _jit(fn, *args):
+    """jax.jit(fn)(*args), compiled without XLA's backend optimizations:
+    the results are exact integers at any optimization level, and the
+    compile is shorter."""
+    return jax.jit(fn).lower(*args).compile(compiler_options={
+        "xla_backend_optimization_level": 0,
+        "xla_llvm_disable_expensive_passes": True})(*args)
+
+
 @pytest.fixture(scope="module")
 def both():
     steps = sorted(set(tmm.ccmm_col_steps(NUM_X, NUM_ROW)
@@ -93,7 +102,7 @@ def test_cpmm_identical(both, masked):
         if masked else None
     jct = _enc_batch(jencryptor, J)
     jmm_ = jmm.CPMM(jev, jenc, W, n_q=jctx.L, bias=bias, mask=mask)
-    want = jax.jit(lambda d: jmm_(JCiphertext(d, jct.scale)))(jct.data)
+    want = _jit(lambda d: jmm_(JCiphertext(d, jct.scale)), jct.data)
     got = tmm.CPMM(ev, enc, W, n_q=ctx.L, bias=bias, mask=mask)(
         convert.ciphertext(jct))
     assert got.scale == want.scale and got.n_q == ctx.L - 2
@@ -106,9 +115,9 @@ def col_to_diag_ref(both):
     and unchunked comparisons."""
     jctx, jenc, jencryptor, jev, ctx, enc, ev = both
     cx, cw = _enc_batch(jencryptor, 5), _enc_batch(jencryptor, 5)
-    want = jax.jit(lambda a, b: jmm.ccmm_col_to_diag(
+    want = _jit(lambda a, b: jmm.ccmm_col_to_diag(
         jev, JCiphertext(a, cx.scale), JCiphertext(b, cw.scale), NUM_X,
-        NUM_ROW))(cx.data, cw.data)
+        NUM_ROW), cx.data, cw.data)
     return cx, cw, want
 
 
@@ -128,9 +137,9 @@ def test_ccmm_diag_to_col_identical(both):
     ca = jencryptor.encrypt(jencryptor.encode(
         RNG.uniform(-1, 1, (NUM_ROW, ctx.cfg.slots))))
     cv = _enc_batch(jencryptor, 4)
-    want = jax.jit(lambda a, b: jmm.ccmm_diag_to_col(
+    want = _jit(lambda a, b: jmm.ccmm_diag_to_col(
         jev, JCiphertext(a, ca.scale), JCiphertext(b, cv.scale), NUM_X,
-        NUM_ROW))(ca.data, cv.data)
+        NUM_ROW), ca.data, cv.data)
     got = tmm.ccmm_diag_to_col(ev, convert.ciphertext(ca),
                                convert.ciphertext(cv), NUM_X, NUM_ROW)
     assert got.scale == want.scale

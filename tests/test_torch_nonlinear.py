@@ -242,6 +242,16 @@ def jax_keys():
     return jencryptor, JEvaluator(jctx, relin_key=jrelin), ev
 
 
+def _jit(fn, *args):
+    """jax.jit(fn)(*args), compiled without XLA's backend optimizations:
+    the results are exact integers at any optimization level, and the
+    compile is shorter."""
+    import jax
+    return jax.jit(fn).lower(*args).compile(compiler_options={
+        "xla_backend_optimization_level": 0,
+        "xla_llvm_disable_expensive_passes": True})(*args)
+
+
 def _assert_bit_identical(jax_keys, name):
     import jax
     from moai_tpu.boot import evalmod as jevalmod
@@ -253,7 +263,7 @@ def _assert_bit_identical(jax_keys, name):
     def jfn(d):
         return fn(jevalmod if name in BOOT else jnl, jev,
                   JCiphertext(d, jct.scale, True))
-    want = jax.jit(jfn)(jct.data)
+    want = _jit(jfn, jct.data)
     got = fn(evalmod if name in BOOT else nl, ev, convert.ciphertext(jct))
     assert got.scale == want.scale and got.n_q == want.n_q
     assert np.array_equal(got.data.numpy(),
