@@ -1,12 +1,13 @@
 """Smoke run of moai_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [bootstrap] [head] [layer]
+    python3 chip_smoke.py [bootstrap] [head] [model] [layer]
 
-With no argument it runs every phase, in this order; naming phases runs
-only those.
+With no argument it runs bootstrap, head and model, in this order; naming
+phases runs only those (``layer`` runs only when named: the model's layer
+0 is the same layer on the same input, and reports the same numbers).
 
 1. Builds the NTT kernels (moai_tpu_torch/csrc/ntt.cu) with nvcc for sm_90a.
-2. Bootstraps at N=2^16 on flagship_config (entry.build_bootstrap: 32768
+2. bootstrap: at N=2^16 on flagship_config (entry.build_bootstrap: 32768
    slots, L 74 = q0 pair + 20 data pairs + 16 boot pairs, K 13, dnum 6,
    Galois keys for every CoeffToSlot/SlotToCoeff step and the conjugation,
    held as int32): set-up seconds (context, key generation, the
@@ -24,24 +25,37 @@ only those.
    and top kernels (torch.profiler), peak memory; then the decrypted
    slots against the input (gated, real and imaginary parts), and ModRaise
    on the first ciphertext against the plain path on the CPU (reported).
-3. Runs the encrypted attention head at BERT-base head width (d_model 768,
-   head_dim 64, 128 tokens, 128 interleaved inputs, logN 15, L 34) with
-   weights drawn at BERT-base magnitude: after set-up, the same check and
-   timing on its context (all 45 limbs and slices, [8, 2, 45, 2^15]);
+3. head: the encrypted attention head at BERT-base head width (d_model
+   768, head_dim 64, 128 tokens, 128 interleaved inputs, logN 15, L 34)
+   with weights drawn at BERT-base magnitude: after set-up, the same check
+   and timing on its context (all 45 limbs and slices, [8, 2, 45, 2^15]);
    then one pass with the launch counts set to 0 just before (both kernels
    must have launched), decrypted and compared with the float64 oracle.
-4. Runs one encoder layer at full BERT-base width (entry.build_layer:
-   d_model 768, 12 heads of 64, d_inter 3072, 128 tokens, 128 inputs,
-   logN 15, L 28, DepthPlan(5, 5, 2, 0, 16), weights synthesized by
-   load_reference_layer, domains from calibrate_domains, the harness
-   Recryptor as its refresh): set-up seconds (keys and weights, encryption
-   of the input), the same kernel check and timing on the layer's context
-   (all 38 limbs and slices, [8, 2, 38, 2^15]), then one pass with the
-   launch counts set to 0 just before (both kernels must have launched):
-   its seconds (host clock, the pass traced by torch.profiler: device time
-   by kernel and the busy share), peak memory and the seconds inside the
-   refreshes; then the decrypted output against the float64 oracle
-   (gated) and against plain_bert_layer (reported).
+4. model: the stacked encoder at full BERT-base width, MODEL_LAYERS of its
+   12 layers (entry.build_model: d_model 768, 12 heads of 64, d_inter
+   3072, 128 tokens, 128 inputs, logN 15, L 28, DepthPlan(5, 5, 2, 0, 16),
+   weights synthesized by load_reference_layer, domains from one
+   calibrate_domains over every layer, the harness Recryptor as its
+   refresh): set-up seconds, the same kernel check and timing on its
+   context (all 38 limbs and slices, [8, 2, 38, 2^15]), then one pass with
+   the launch counts set to 0 just before (both kernels must have
+   launched).  Layer 0 runs with utils.debug.OpTrace on the evaluator and
+   under torch.profiler (device time by kernel and the busy share), the
+   later layers on the host clock; each layer's seconds, the seconds
+   inside its refreshes, its peak memory (layer 0: by stage).  After each
+   layer (EncryptedBertModel's on_layer): its state saved with
+   serial.save_layer_state into a temporary directory, loaded back onto
+   the card and held torch.equal to the ciphertext in memory (gated), save
+   and load seconds and the file's bytes; then the decrypted output
+   against the chained float64 oracle (Model.oracle, gated at LAYER_ATOL)
+   and against plain_bert_layer chained (reported).  The launches of these
+   checks are not counted as the path's.  Ends with the OpTrace summary
+   of layer 0: op counts and the lowest n_q.
+5. layer (only when named): one encoder layer at the same width and chain
+   (entry.build_layer): set-up, the same kernel check, one pass traced by
+   torch.profiler, its seconds, peak memory and refresh seconds, the
+   decrypted output against the float64 oracle (gated) and against
+   plain_bert_layer (reported).
 
 Prints a {"kernels": [...]} line, one row per kernel and path: each row's
 check and timings come from that path's context and its launches from
@@ -54,9 +68,12 @@ from __future__ import annotations
 
 import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -84,6 +101,9 @@ LAYER_PLAN = dict(exp_r=5, inv_iters=5, ln_newton=2, ln_gold=0,
 # through LayerNorm's rsqrt (1/sigma of order 1-2 here) remain: the logN-9
 # tests see 4e-9 at 2^52, far inside.
 LAYER_ATOL = 1e-3
+# The model phase: BERT-base's first MODEL_LAYERS layers of its 12, each
+# held to LAYER_ATOL against the chained oracle.
+MODEL_LAYERS = 2
 # what the layer runs before each of its refreshes
 LAYER_STAGES = ["heads: Q/K, QK^T, exp, sums", "heads: inverse, "
                 "softmax x V; W_O", "-", "residual, LayerNorm 1",
@@ -199,30 +219,42 @@ def check_kernels(ctx) -> dict:
     return res
 
 
+def profile_summary(prof, wall: float) -> dict:
+    """Device time by kernel from a stopped torch.profiler run, read from
+    its raw events (``key_averages()`` parses every event in Python: ~2
+    minutes for the half a million kernels of a layer pass): the wall
+    time, the top 10 kernels and every NTT kernel, and the device's busy
+    share of ``wall``."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            acc = by_name.setdefault(e.name(), [0, 0])
+            acc[0] += e.duration_ns()
+            acc[1] += 1
+    rows = sorted(((ns / 1e9, n, k) for k, (ns, n) in by_name.items()),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_busy_share": busy / wall,
+            "kernels": sum(r[1] for r in rows),
+            "top": [{"s": s, "calls": n, "name": k[:80]}
+                    for s, n, k in rows[:10]],
+            "ntt": [{"s": s, "calls": n, "name": kernel_name(k)}
+                    for s, n, k in rows if "ntt_" in k]}
+
+
 def profile_pass(fn):
     """fn() under torch.profiler (device activity only, which traces each
-    kernel and leaves the host's ops alone): returns fn's result, and the
-    wall time, device time by kernel (top 10, and every NTT kernel) and the
-    device's busy share of the wall time."""
-    from torch.autograd import DeviceType
+    kernel and leaves the host's ops alone): returns fn's result and
+    ``profile_summary``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         out = fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    rows = [(e.self_device_time_total / 1e6, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    return out, {"wall_s": wall, "device_busy_s": busy,
-                 "device_busy_share": busy / wall,
-                 "kernels": sum(r[1] for r in rows),
-                 "top": [{"s": s, "calls": n, "name": k[:80]}
-                         for s, n, k in rows[:10]],
-                 "ntt": [{"s": s, "calls": n, "name": kernel_name(k)}
-                         for s, n, k in rows if "ntt_" in k]}
+    return out, profile_summary(prof, wall)
 
 
 def check_modraise(boot) -> None:
@@ -391,6 +423,17 @@ def run_head() -> dict:
     return kern
 
 
+def layer_stages(refresh_log, t0: float) -> list:
+    """A layer's stretches between its refreshes, and the refreshes, in
+    host seconds from its start t0 (time.perf_counter)."""
+    stages, end = [], t0
+    for label, (shape, n_q, start, dt) in zip(LAYER_STAGES, refresh_log):
+        stages.append((label, round(start - end, 2)))
+        stages.append((f"refresh {list(shape)} -> n_q {n_q}", round(dt, 2)))
+        end = start + dt
+    return stages
+
+
 def run_layer() -> dict:
     """The layer phase: set-up, kernels against plain at its chain, one
     pass with the launch counts set to 0 just before, timed on the host
@@ -430,13 +473,7 @@ def run_layer() -> dict:
     peak_reserved = torch.cuda.max_memory_reserved()
     refresh_s = sum(r[3] for r in layer.refresh_log)
     n = LAYER["input_count"]
-    # the stretches between refreshes, on the host clock
-    stages, end = [], t0
-    for label, (shape, n_q, start, dt) in zip(LAYER_STAGES,
-                                               layer.refresh_log):
-        stages.append((label, round(start - end, 2)))
-        stages.append((f"refresh {list(shape)} -> n_q {n_q}", round(dt, 2)))
-        end = start + dt
+    stages = layer_stages(layer.refresh_log, t0)
     log(f"layer: {secs:.2f} s per pass, {secs / n:.4f} s per input; "
         f"inside the Recryptor refreshes {refresh_s:.2f} s, the rest "
         f"{secs - refresh_s:.2f} s; peak {peak / 2**30:.2f} GiB allocated, "
@@ -466,6 +503,150 @@ def run_layer() -> dict:
     return kern
 
 
+def checkpoint(model, ct, i: int) -> dict:
+    """Layer i's output through serial and back: saved into a temporary
+    directory, loaded onto the card and held torch.equal to the
+    ciphertext in memory (gated), the file deleted.  Returns the save and
+    load seconds, the file's bytes and the disk's free bytes before."""
+    with tempfile.TemporaryDirectory() as d:
+        free = shutil.disk_usage(d).free
+        log(f"checkpoint of layer {i}: {free / 2**30:.1f} GiB free on the "
+            f"disk of {d}")
+        path = os.path.join(d, f"layer{i}.zip")
+        t = time.perf_counter()
+        model.save_state(path, ct, i)
+        save_s = time.perf_counter() - t
+        size = os.path.getsize(path)
+        t = time.perf_counter()
+        back, idx = model.load_state(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        same = (idx == i and back.scale == ct.scale
+                and back.data.device == ct.data.device
+                and torch.equal(back.data, ct.data))
+        del back
+        os.remove(path)
+    if not same:
+        raise SystemExit(f"layer {i}'s checkpoint, reloaded, differs from "
+                         f"its ciphertext")
+    return {"save_s": save_s, "load_s": load_s, "bytes": size,
+            "disk_free_bytes": free}
+
+
+def run_model() -> dict:
+    """The model phase: the stacked encoder over MODEL_LAYERS layers.
+    Set-up, kernels against plain at its chain, then one pass with the
+    launch counts set to 0 just before: layer 0 with OpTrace on the
+    evaluator and traced by torch.profiler, the later layers on the host
+    clock; after each layer its checkpoint round trip and the oracle
+    check (both gated).  Returns the kernels' measurements with the
+    pass's launches, less those of the checks between layers."""
+    from torch.profiler import ProfilerActivity, profile
+    from moai_tpu_torch import ntt_cuda
+    from moai_tpu_torch.entry import build_model
+    from moai_tpu_torch.models.bert import (BertDims, DepthPlan,
+                                            plain_bert_layer)
+    from moai_tpu_torch.utils.debug import OpTrace
+    t0 = time.time()
+    model = build_model(**LAYER, dims=BertDims(**LAYER_DIMS),
+                        plan=DepthPlan(**LAYER_PLAN), n_layers=MODEL_LAYERS,
+                        device="cuda")
+    first = model.model.layers[0]
+    log(f"model set-up {time.time() - t0:.1f} s: "
+        f"{json.dumps(model.setup_s)} (context, keys, weights of "
+        f"{MODEL_LAYERS} layers, calibration; encode + encrypt of the "
+        f"input); L={model.ctx.L} K={model.ctx.K} n_att={first.n_att} "
+        f"n_ln1={first.n_ln1} n_ffn={first.n_ffn}; column chunks: "
+        f"LayerNorm/FFN {first.col_chunk}, QK^T {first.attn.col_chunk}; x "
+        f"{tuple(model.x_data.shape)}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    for i, (m, d) in enumerate(zip(model.max_table, model.domains)):
+        ln1, ln2 = ([round(float(v), 3) for v in d[k]] for k in ("ln1",
+                                                                 "ln2"))
+        log(f"calibration, layer {i}: max table {m:.4f}, gelu domain "
+            f"{d['gelu']:.4f}, LayerNorm S domains {ln1} (hi/lo "
+            f"{ln1[1] / ln1[0]:.2f}) and {ln2} (hi/lo {ln2[1] / ln2[0]:.2f})")
+
+    kern = check_kernels(model.ctx)
+
+    ev, n_ref = first.ev, len(LAYER_STAGES)
+    trace = OpTrace()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    check_launches = dict.fromkeys(KERNELS, 0)
+    plain_in = [model.xs]
+    mark = [0.0]
+
+    def on_layer(i, ct):
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - mark[0]
+        rec = {"s": secs,
+               "refresh_s": sum(r[3] for r in model.refresh_log[
+                   n_ref * i:n_ref * (i + 1)]),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+        prof_rec = None
+        if i == 0:
+            ev.debug = None
+            prof.stop()
+            rec["stages"] = layer_stages(model.refresh_log[:n_ref], mark[0])
+            prof_rec = profile_summary(prof, secs)
+        before = dict(ntt_cuda.launches)
+        torch.cuda.reset_peak_memory_stats()
+        rec.update(checkpoint(model, ct, i))
+        rec["checkpoint_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        got = model.decode(ct)
+        want = model.oracle(i + 1)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise SystemExit(f"layer {i} output {got.shape} not finite / "
+                             f"not {want.shape}")
+        rec["err"] = float(np.abs(got - want).max())
+        rec["max_out"] = float(np.abs(want).max())
+        plain = np.zeros_like(got)
+        for j, n in enumerate(model.lens):
+            plain[j, :n] = plain_bert_layer(plain_in[0][j, :n],
+                                            model.weights[i], model.dims)
+        plain_in[0] = plain
+        rows = np.arange(model.dims.num_row)[None, :] < model.lens[:, None]
+        rec["err_plain"] = float(np.abs(got - plain)[rows].max())
+        for k in KERNELS:
+            check_launches[k] += ntt_cuda.launches[k] - before[k]
+        log(f"model layer {i}: {json.dumps(rec)}")
+        if prof_rec is not None:
+            log(f"model layer {i} profile:", json.dumps(prof_rec))
+        if rec["err"] > LAYER_ATOL:
+            raise SystemExit(f"layer {i} output outside tolerance")
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        mark[0] = time.perf_counter()
+
+    ntt_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ev.debug = trace
+    prof.start()
+    torch.cuda.synchronize()
+    t1 = mark[0] = time.perf_counter()
+    try:
+        out = model.fn(model.x_data, on_layer=on_layer)
+    finally:
+        ev.debug = None
+    secs = time.perf_counter() - t1
+    launches = {k: ntt_cuda.launches[k] - check_launches[k]
+                for k in KERNELS}
+    log(f"model: {MODEL_LAYERS} layers and their checks in {secs:.2f} s; "
+        f"output n_q={out.n_q}; launches in the layers {launches}, in the "
+        f"checks between them (not counted) {check_launches}; OpTrace of "
+        f"layer 0: {len(trace.events)} ops {json.dumps(trace.summary())}, "
+        f"lowest n_q {trace.min_n_q()}")
+    for k in KERNELS:
+        if launches[k] <= 0:
+            raise SystemExit(f"{k} was not launched by the model")
+        kern[k]["launches"] = launches[k]
+    if out.n_q != first.n_att:
+        raise SystemExit(f"model output at {out.n_q} limbs, not "
+                         f"{first.n_att}")
+    return kern
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -483,8 +664,8 @@ def main() -> int:
         f"{torch.version.cuda}")
 
     phases = {"bootstrap": run_bootstrap, "head": run_head,
-              "layer": run_layer}
-    chosen = sys.argv[1:] or list(phases)
+              "model": run_model, "layer": run_layer}
+    chosen = sys.argv[1:] or ["bootstrap", "head", "model"]
     unknown = set(chosen) - set(phases)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",

@@ -9,12 +9,16 @@ bootstrap, end to end.
   EncryptedBertLayer``) on the harness Recryptor refresh, as
   ``tests/test_model.py`` builds the JAX one, with weights from
   ``load_reference_layer`` and domains from ``calibrate_domains``.
+- ``build_model``: the stacked encoder (``models.bert.
+  EncryptedBertModel``) on the same set-up, with layer-state checkpoints
+  (``serial.save_layer_state``) and resume (``start_layer``).
 - ``build_bootstrap``: the CKKS bootstrap (``boot.bootstrap``) through
   ``make_refresh``, as the layers call it, over a batch of ciphertexts
   whose slot values are the oracle.
 
-``head_oracle`` and ``layer_oracle`` compute the same functions, with the
-circuits' own polynomial approximations, in float64 numpy.
+``head_oracle`` and ``layer_oracle`` (chained by ``Model.oracle``) compute
+the same functions, with the circuits' own polynomial approximations, in
+float64 numpy.
 """
 
 from __future__ import annotations
@@ -34,15 +38,16 @@ from .encrypt import Encryptor, Decryptor
 from .evaluator import Evaluator
 from .keys import KeyGenerator
 from .models.bert import (BertDims, BertLayerWeights, DepthPlan,
-                          EncryptedBertLayer, calibrate_domains,
-                          galois_steps_for_model, load_reference_layer,
-                          plain_bert_layer)
+                          EncryptedBertLayer, EncryptedBertModel,
+                          calibrate_domains, galois_steps_for_model,
+                          load_reference_layer, plain_bert_layer)
 from .ops.matmul import (CPMM, ccmm_col_to_diag, ccmm_diag_to_col,
                          ccmm_col_steps, ccmm_diag_steps, col_chunk_for)
 from .ops.nonlinear import (softmax_diag, diag_valid_masks, fit_gelu_cheb,
                             fit_rsqrt_line)
 from .ops.packing import batch_input, bias_vec, unpack_batch
 from .params import CKKSConfig, Context, head_config, resolve_device
+from . import serial
 from .utils.recrypt import Recryptor
 
 MAX_VAL = 2.0           # softmax shift: scores enter exp as x - MAX_VAL
@@ -200,6 +205,22 @@ def head_oracle(xs: np.ndarray, weights: dict, lens, exp_r: int,
     return out
 
 
+def _decode_layer_output(decryptor: Decryptor, ctx: Context,
+                         dims: BertDims, n_inputs: int,
+                         out: Ciphertext) -> np.ndarray:
+    """Decrypt a layer output -> [n_inputs, num_row, d_model].
+
+    Decrypts the bottom n_q0 + 1 limbs only: the centered message (|m| ~
+    2^55 at LayerNorm scale) is far inside their product's half (2^85 at
+    logN 15), so it is the integer decryption at every limb gives, and the
+    host's CRT decode, which costs per limb, is ~9x shorter at the layer's
+    28."""
+    n_q = min(out.n_q, ctx.n_q0 + 1)
+    low = out.with_data(out.data[..., :n_q, :])
+    return unpack_batch(decryptor.decrypt(low).real, dims.num_x,
+                        dims.num_row, n_inputs)
+
+
 @dataclasses.dataclass
 class Layer:
     fn: Callable[[torch.Tensor], Ciphertext]   # x data -> layer output
@@ -219,18 +240,9 @@ class Layer:
     #                            time.perf_counter, seconds)
 
     def decode(self, out: Ciphertext) -> np.ndarray:
-        """Decrypt the layer output -> [input_count, num_row, d_model].
-
-        Decrypts the bottom n_q0 + 1 limbs only: the centered message
-        (|m| ~ 2^55 at LayerNorm scale) is far inside their product's half
-        (2^85 at logN 15), so it is the integer decryption at every limb
-        gives, and the host's CRT decode, which costs per limb, is ~9x
-        shorter at the layer's 28."""
-        n_q = min(out.n_q, self.ctx.n_q0 + 1)
-        low = out.with_data(out.data[..., :n_q, :])
-        sm = self.decryptor.decrypt(low).real
-        return unpack_batch(sm, self.dims.num_x, self.dims.num_row,
-                            len(self.lens))
+        """Decrypt the layer output -> [input_count, num_row, d_model]."""
+        return _decode_layer_output(self.decryptor, self.ctx, self.dims,
+                                    len(self.lens), out)
 
     def oracle(self) -> np.ndarray:
         return layer_oracle(self.xs, self.weights, self.lens, self.dims,
@@ -246,19 +258,48 @@ class Layer:
         return out
 
 
-def build_layer(logN: int, n_data_levels: int, dims: BertDims,
-                plan: DepthPlan, input_count: int, seed: int = 11,
-                device="cuda") -> Layer:
-    """Keys, weights, calibration and the encrypted input of one encoder
-    layer on the harness Recryptor.
+@dataclasses.dataclass
+class _EncoderSetup:
+    """What ``build_layer`` and ``build_model`` share: the context, keys,
+    the drawn input, the weights of layers [0, n_layers), their
+    calibration and the Recryptor refresh."""
+    ctx: Context
+    encoder: Encoder
+    encryptor: Encryptor
+    decryptor: Decryptor
+    ev: Evaluator
+    dims: BertDims
+    lens: np.ndarray
+    xs: np.ndarray
+    weights: list              # BertLayerWeights per layer
+    domains: list              # calibrated domains per layer
+    max_table: list            # calibrated softmax shift per layer
+    refresh: Callable[[Ciphertext, int], Ciphertext]
+    refresh_log: list
+    t0: float                  # the set-up's start, time.perf_counter
 
-    The context is ``head_config(logN, n_data_levels)``; keys, the input
-    lengths (in [num_row/2, num_row]) and the N(0, 0.5) tokens are drawn
-    from ``seed`` in ``build_head``'s order; the weights are
-    ``load_reference_layer(0, dims)``.  The softmax max table and the
-    LayerNorm and GELU domains come from ``calibrate_domains`` over this
-    batch.  The input is encoded at ctx.scale, as the JAX layer's test
-    encodes it."""
+    def encrypt_input(self, n_q: int) -> tuple[torch.Tensor, dict]:
+        """The encrypted input at n_q limbs, and the set-up's seconds."""
+        _sync(self.ctx.device)
+        t1 = time.perf_counter()
+        x0 = batch_input(self.encryptor, self.xs, self.dims.num_x,
+                         self.dims.num_row, n_q=n_q)
+        _sync(self.ctx.device)
+        return x0.data, {"keys_weights": t1 - self.t0,
+                         "encrypt": time.perf_counter() - t1}
+
+
+def _encoder_setup(logN: int, n_data_levels: int, dims: BertDims,
+                   input_count: int, n_layers: int, seed: int,
+                   device) -> _EncoderSetup:
+    """The context is ``head_config(logN, n_data_levels)``; keys, the
+    input lengths (in [num_row/2, num_row]) and the N(0, 0.5) tokens are
+    drawn from ``seed`` in ``build_head``'s order; the weights are
+    ``load_reference_layer(i, dims)`` for i < n_layers.  The softmax max
+    table and the LayerNorm and GELU domains come from one
+    ``calibrate_domains`` call over this batch and every layer: a layer's
+    entries depend only on that layer's input, so layer 0's are the same
+    for any n_layers."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     ctx = Context(head_config(logN, n_data_levels), device=dev)
@@ -279,8 +320,8 @@ def build_layer(logN: int, n_data_levels: int, dims: BertDims,
     xs = rng.normal(0, 0.5, (input_count, dims.num_row, dims.d_model))
     for j, n in enumerate(lens):
         xs[j, n:] = 0.0
-    w = load_reference_layer(0, dims)
-    domains, max_table = calibrate_domains(xs, lens, [w], dims)
+    ws = [load_reference_layer(i, dims) for i in range(n_layers)]
+    domains, max_table = calibrate_domains(xs, lens, ws, dims)
     rec = Recryptor(encryptor, decryptor)
     refresh_log = []
 
@@ -293,23 +334,105 @@ def build_layer(logN: int, n_data_levels: int, dims: BertDims,
                             time.perf_counter() - t))
         return out
 
+    return _EncoderSetup(ctx, enc, encryptor, decryptor, ev, dims,
+                         np.asarray(lens), xs, ws, domains, max_table,
+                         refresh, refresh_log, t0)
+
+
+def build_layer(logN: int, n_data_levels: int, dims: BertDims,
+                plan: DepthPlan, input_count: int, seed: int = 11,
+                device="cuda") -> Layer:
+    """Keys, weights, calibration and the encrypted input of one encoder
+    layer on the harness Recryptor (``_encoder_setup`` with one layer).
+    The input is encoded at ctx.scale, as the JAX layer's test encodes
+    it."""
+    s = _encoder_setup(logN, n_data_levels, dims, input_count, 1, seed,
+                       device)
+    ctx = s.ctx
+    dom = s.domains[0]
     layer = EncryptedBertLayer(
-        ev, enc, w, dims, plan, lens, max_table=max_table[0],
-        refresh=refresh, ln1_domain=domains[0]["ln1"],
-        ln2_domain=domains[0]["ln2"], gelu_domain=domains[0]["gelu"])
-    _sync(dev)
-    t1 = time.perf_counter()
-    x0 = batch_input(encryptor, xs, dims.num_x, dims.num_row,
-                     n_q=layer.n_att)
-    _sync(dev)
-    setup_s = {"keys_weights": t1 - t0, "encrypt": time.perf_counter() - t1}
+        s.ev, s.encoder, s.weights[0], dims, plan, s.lens,
+        max_table=s.max_table[0], refresh=s.refresh, ln1_domain=dom["ln1"],
+        ln2_domain=dom["ln2"], gelu_domain=dom["gelu"])
+    x_data, setup_s = s.encrypt_input(layer.n_att)
 
     def layer_fn(x_data: torch.Tensor) -> Ciphertext:
         return layer(Ciphertext(x_data, ctx.scale, True))
 
-    return Layer(layer_fn, x0.data, ctx, decryptor, layer, xs, w,
-                 np.asarray(lens), dims, plan, max_table[0], domains[0],
-                 setup_s, refresh_log)
+    return Layer(layer_fn, x_data, ctx, s.decryptor, layer, s.xs,
+                 s.weights[0], s.lens, dims, plan, s.max_table[0], dom,
+                 setup_s, s.refresh_log)
+
+
+@dataclasses.dataclass
+class Model:
+    # (x data, start_layer=0, on_layer=None) -> the last layer's output;
+    # on_layer(i, ct) is called after layer i
+    fn: Callable[..., Ciphertext]
+    x_data: torch.Tensor       # encrypted input [d_model, 2, n_att, N]
+    ctx: Context
+    decryptor: Decryptor
+    model: EncryptedBertModel
+    xs: np.ndarray             # plaintext input [input_count, num_row, d]
+    weights: list              # BertLayerWeights per layer
+    lens: np.ndarray           # valid tokens per input
+    dims: BertDims
+    plan: DepthPlan
+    max_table: list            # the softmax shift per layer
+    domains: list              # ln1, ln2 and gelu per layer
+    setup_s: dict              # host seconds of the set-up, by part
+    refresh_log: list          # as ``Layer.refresh_log``, every layer's
+
+    def decode(self, out: Ciphertext) -> np.ndarray:
+        """Decrypt a layer output -> [input_count, num_row, d_model]."""
+        return _decode_layer_output(self.decryptor, self.ctx, self.dims,
+                                    len(self.lens), out)
+
+    def oracle(self, upto: int) -> np.ndarray:
+        """``layer_oracle`` chained over layers [0, upto)."""
+        out = self.xs
+        for i in range(upto):
+            out = layer_oracle(out, self.weights[i], self.lens, self.dims,
+                               self.plan, self.max_table[i], self.domains[i])
+        return out
+
+    def save_state(self, path: str, ct: Ciphertext, i: int) -> None:
+        """Checkpoint layer i's output (``serial.save_layer_state``)."""
+        serial.save_layer_state(path, ct, i, self.ctx.cfg)
+
+    def load_state(self, path: str) -> tuple[Ciphertext, int]:
+        """-> (ciphertext on the model's device, layer index); resume with
+        ``fn(ct.data, start_layer=index + 1)``."""
+        return serial.load_layer_state(path, device=self.ctx.device)
+
+
+def build_model(logN: int, n_data_levels: int, dims: BertDims,
+                plan: DepthPlan, n_layers: int, input_count: int,
+                seed: int = 11, device="cuda") -> Model:
+    """The stacked encoder (``models.bert.EncryptedBertModel``) of
+    ``n_layers`` layers on the harness Recryptor: the context, keys, input
+    and its encryption are ``build_layer``'s for the same seed, so layer 0
+    computes ``build_layer``'s layer on the same residues."""
+    s = _encoder_setup(logN, n_data_levels, dims, input_count, n_layers,
+                       seed, device)
+    ctx = s.ctx
+    model = EncryptedBertModel(s.ev, s.encoder, s.weights, dims, plan,
+                               s.lens, refresh=s.refresh,
+                               max_table=s.max_table, domains=s.domains)
+    x_data, setup_s = s.encrypt_input(model.n_att)
+
+    def model_fn(x_data: torch.Tensor, start_layer: int = 0,
+                 on_layer: Callable[[int, Ciphertext], None] | None = None
+                 ) -> Ciphertext:
+        model.on_layer = on_layer
+        try:
+            return model(Ciphertext(x_data, ctx.scale, True), start_layer)
+        finally:
+            model.on_layer = None
+
+    return Model(model_fn, x_data, ctx, s.decryptor, model, s.xs, s.weights,
+                 s.lens, dims, plan, s.max_table, s.domains, setup_s,
+                 s.refresh_log)
 
 
 def _sync(dev: torch.device) -> None:

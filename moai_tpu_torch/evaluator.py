@@ -46,6 +46,14 @@ class Evaluator:
         self.relin_key = relin_key
         self.galois_keys = galois_keys
         self._perm_cache = {}
+        # optional observability hook: callable(op_name, result_ct), called
+        # as each of the ops below returns (utils/debug.OpTrace)
+        self.debug = None
+
+    def _dbg(self, name: str, ct: Ciphertext) -> Ciphertext:
+        if self.debug is not None:
+            self.debug(name, ct)
+        return ct
 
     # -- per-limb constants [n, 1] ------------------------------------------
     def _q(self, n_q):
@@ -131,7 +139,8 @@ class Evaluator:
         _require(a.n_q == p.n_q, f"multiply_plain: levels {a.n_q} vs {p.n_q}")
         out = ma.mont_mul(a.data, p.data.unsqueeze(-3), self._q(a.n_q),
                           self._rinv(a.n_q))
-        return Ciphertext(out, a.scale * p.scale, a.is_ntt)
+        return self._dbg("multiply_plain",
+                         Ciphertext(out, a.scale * p.scale, a.is_ntt))
 
     def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         """Dyadic ct*ct product -> 3-poly ciphertext."""
@@ -144,8 +153,8 @@ class Evaluator:
         c1 = ma.add_mod(ma.mont_mul(a0, b1, q, rinv),
                         ma.mont_mul(a1, b0, q, rinv), q)
         c2 = ma.mont_mul(a1, b1, q, rinv)
-        return Ciphertext(torch.stack([c0, c1, c2], dim=-3),
-                          a.scale * b.scale, True)
+        return self._dbg("multiply", Ciphertext(
+            torch.stack([c0, c1, c2], dim=-3), a.scale * b.scale, True))
 
     def square(self, a: Ciphertext) -> Ciphertext:
         q, rinv = self._q(a.n_q), self._rinv(a.n_q)
@@ -165,7 +174,8 @@ class Evaluator:
         q = self._q(a.n_q)
         c0 = ma.add_mod(a.data[..., 0, :, :], ks0, q)
         c1 = ma.add_mod(a.data[..., 1, :, :], ks1, q)
-        return Ciphertext(torch.stack([c0, c1], dim=-3), a.scale, True)
+        return self._dbg("relinearize", Ciphertext(
+            torch.stack([c0, c1], dim=-3), a.scale, True))
 
     def multiply_relin(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         return self.relinearize(self.multiply(a, b))
@@ -192,7 +202,7 @@ class Evaluator:
         num = ma.sub_mod(a.data[..., :ell, :], u_ntt, qj)
         out = ma.mont_mul(num, dv["resc_qlinv_mont"][ell, :ell].reshape(-1, 1),
                           qj, rinvj)
-        return Ciphertext(out, a.scale / qe, True)
+        return self._dbg("rescale", Ciphertext(out, a.scale / qe, True))
 
     def rescale_pair(self, a: Ciphertext) -> Ciphertext:
         """One level rescale = two single-prime rescales (composite scale)."""
@@ -205,7 +215,7 @@ class Evaluator:
 
     def mod_drop_to(self, a: Ciphertext, n_q: int) -> Ciphertext:
         _require(n_q <= a.n_q, f"mod_drop_to: {n_q} above {a.n_q}")
-        return a.with_data(a.data[..., :n_q, :])
+        return self._dbg("mod_drop_to", a.with_data(a.data[..., :n_q, :]))
 
     def mod_drop_level(self, a: Ciphertext, n_levels: int = 1) -> Ciphertext:
         """Drop whole composite levels (pairs of primes)."""
@@ -325,8 +335,8 @@ class Evaluator:
         c0, c1 = d[..., 0, :, :], d[..., 1, :, :]
         ks0, ks1 = self._switch_key(c1, self.galois_keys.keys[g], a.n_q)
         q = self._q(a.n_q)
-        return Ciphertext(torch.stack([ma.add_mod(c0, ks0, q), ks1], dim=-3),
-                          a.scale, True)
+        return self._dbg("apply_galois", Ciphertext(
+            torch.stack([ma.add_mod(c0, ks0, q), ks1], dim=-3), a.scale, True))
 
     def _naf_digits(self, v: int) -> list[int]:
         """Non-adjacent form: signed powers of two summing to v."""
@@ -402,8 +412,8 @@ class Evaluator:
             d0, d1 = self._ks_mac_moddown(y_r, kr, n_q)
             c0 = a.data[..., 0, :, :][..., p].movedim(-2, 0)
             outs.append(torch.stack([ma.add_mod(c0, d0, q), d1], dim=-3))
-        return Ciphertext(torch.cat(outs) if len(outs) > 1 else outs[0],
-                          a.scale, True)
+        return self._dbg("rotate_hoisted", Ciphertext(
+            torch.cat(outs) if len(outs) > 1 else outs[0], a.scale, True))
 
     # -- integer & per-column constant helpers -----------------------------
     def mul_int(self, a: Ciphertext, n: int) -> Ciphertext:

@@ -151,6 +151,12 @@ class Context:
             out *= p
         return out
 
+    def estimate_security_bits(self, quantum: bool = False) -> float:
+        """Primal-uSVP core-SVP estimate for this chain's N, full key
+        modulus QP and secret distribution (``security.py``)."""
+        from .security import context_security_bits
+        return context_security_bits(self, quantum=quantum)
+
     # -- RNS precomputations (host; identical to the JAX package) ---------
     def _build_rns_tables(self):
         primes = self.all_primes
@@ -310,3 +316,14 @@ def flagship_config() -> CKKSConfig:
     assert bits >= 55.0, \
         f"flagship chain regressed below its documented floor: {bits:.1f}"
     return cfg
+
+
+def flagship_parity_config() -> CKKSConfig:
+    """N=2^16 chain sized to the reference's bit budget (logp=46 data
+    levels, logq=51 q0/boot levels): 23-bit data pairs, 25.5-bit boot
+    pairs, 51-bit q0, dnum 13 so the special primes stay small.  ~74 bits
+    of conservative core-SVP hardness (``security.py``)."""
+    return CKKSConfig(logN=16, q0_bits=(26.0, 25.0), data_pair_bits=23.0,
+                      n_data_levels=20, boot_pair_bits=25.5,
+                      n_boot_levels=16, dnum=13, special_bits=29.5,
+                      hamming_weight=192)

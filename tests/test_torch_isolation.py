@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -37,11 +38,15 @@ def test_every_module_imports_without_jax():
             "print('ok')\n")
     r = _run(code)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
-    assert len(MODULES) >= 26
+    assert len(MODULES) >= 31
+    assert {"moai_tpu_torch.serial", "moai_tpu_torch.utils.debug"} <= \
+        set(MODULES)
 
 
 @pytest.mark.parametrize("entry", ["Context", "KeyGenerator", "Encryptor",
-                                   "Evaluator", "build_head", "build_layer"])
+                                   "Evaluator", "build_head", "build_layer",
+                                   "build_model", "serial.load_ciphertext",
+                                   "convert.ciphertext"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -49,7 +54,9 @@ def test_entry_points_default_to_cuda(entry):
     from moai_tpu_torch.keys import KeyGenerator
     from moai_tpu_torch.encrypt import Encryptor
     from moai_tpu_torch.evaluator import Evaluator
-    from moai_tpu_torch.entry import build_head, build_layer
+    from moai_tpu_torch import convert, serial
+    from moai_tpu_torch.ciphertext import Ciphertext
+    from moai_tpu_torch.entry import build_head, build_layer, build_model
     from moai_tpu_torch.models.bert import BertDims, DepthPlan
     ctx = Context(_test_config(), device="cpu")
     calls = {
@@ -60,6 +67,13 @@ def test_entry_points_default_to_cuda(entry):
         "build_head": lambda: build_head(9, 12, 32, 8, 8, 8, 2, 2, 3),
         "build_layer": lambda: build_layer(
             9, 10, BertDims(32, 8, 8, 2, 4, 16), DepthPlan(2, 2, 1, 0, 8), 3),
+        "build_model": lambda: build_model(
+            9, 10, BertDims(32, 8, 8, 2, 4, 16), DepthPlan(2, 2, 1, 0, 8), 2,
+            3),
+        "serial.load_ciphertext": lambda: serial.load_ciphertext(
+            "no-such-file"),
+        "convert.ciphertext": lambda: convert.ciphertext(
+            Ciphertext(np.zeros((2, 3, 8), np.uint32), 1.0)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

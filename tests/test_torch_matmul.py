@@ -58,8 +58,9 @@ def both():
     jrelin = jkg.gen_relin_key()
     jev = JEvaluator(jctx, relin_key=jrelin, galois_keys=jgks)
     ctx = Context(_test_config(), device="cpu")
-    ev = Evaluator(ctx, relin_key=convert.kswitch_key(jrelin),
-                   galois_keys=convert.galois_keys(jgks), device="cpu")
+    ev = Evaluator(ctx, relin_key=convert.kswitch_key(jrelin, device="cpu"),
+                   galois_keys=convert.galois_keys(jgks, device="cpu"),
+                   device="cpu")
     return jctx, jenc, jencryptor, jev, ctx, Encoder(ctx), ev
 
 
@@ -104,7 +105,7 @@ def test_cpmm_identical(both, masked):
     jmm_ = jmm.CPMM(jev, jenc, W, n_q=jctx.L, bias=bias, mask=mask)
     want = _jit(lambda d: jmm_(JCiphertext(d, jct.scale)), jct.data)
     got = tmm.CPMM(ev, enc, W, n_q=ctx.L, bias=bias, mask=mask)(
-        convert.ciphertext(jct))
+        convert.ciphertext(jct, device="cpu"))
     assert got.scale == want.scale and got.n_q == ctx.L - 2
     assert _eq(got.data, want.data)
 
@@ -125,8 +126,9 @@ def col_to_diag_ref(both):
 def test_ccmm_col_to_diag_identical(both, col_to_diag_ref, col_chunk):
     ev = both[-1]
     cx, cw, want = col_to_diag_ref
-    got = tmm.ccmm_col_to_diag(ev, convert.ciphertext(cx),
-                               convert.ciphertext(cw), NUM_X, NUM_ROW,
+    got = tmm.ccmm_col_to_diag(ev, convert.ciphertext(cx, device="cpu"),
+                               convert.ciphertext(cw, device="cpu"), NUM_X,
+                               NUM_ROW,
                                col_chunk=col_chunk)
     assert got.scale == want.scale and got.data.shape[0] == NUM_ROW
     assert _eq(got.data, want.data)
@@ -140,7 +142,8 @@ def test_ccmm_diag_to_col_identical(both):
     want = _jit(lambda a, b: jmm.ccmm_diag_to_col(
         jev, JCiphertext(a, ca.scale), JCiphertext(b, cv.scale), NUM_X,
         NUM_ROW), ca.data, cv.data)
-    got = tmm.ccmm_diag_to_col(ev, convert.ciphertext(ca),
-                               convert.ciphertext(cv), NUM_X, NUM_ROW)
+    got = tmm.ccmm_diag_to_col(ev, convert.ciphertext(ca, device="cpu"),
+                               convert.ciphertext(cv, device="cpu"), NUM_X,
+                               NUM_ROW)
     assert got.scale == want.scale
     assert _eq(got.data, want.data)

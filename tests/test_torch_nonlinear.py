@@ -238,7 +238,8 @@ def jax_keys():
     jencryptor = JEncryptor(jctx, JEncoder(jctx), jkg.gen_public_key(), jkg)
     jrelin = jkg.gen_relin_key()
     ev = Evaluator(Context(CFG, device="cpu"),
-                   relin_key=convert.kswitch_key(jrelin), device="cpu")
+                   relin_key=convert.kswitch_key(jrelin, device="cpu"),
+                   device="cpu")
     return jencryptor, JEvaluator(jctx, relin_key=jrelin), ev
 
 
@@ -264,7 +265,8 @@ def _assert_bit_identical(jax_keys, name):
         return fn(jevalmod if name in BOOT else jnl, jev,
                   JCiphertext(d, jct.scale, True))
     want = _jit(jfn, jct.data)
-    got = fn(evalmod if name in BOOT else nl, ev, convert.ciphertext(jct))
+    got = fn(evalmod if name in BOOT else nl, ev,
+             convert.ciphertext(jct, device="cpu"))
     assert got.scale == want.scale and got.n_q == want.n_q
     assert np.array_equal(got.data.numpy(),
                           np.asarray(want.data).astype(np.int64))

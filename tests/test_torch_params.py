@@ -35,3 +35,27 @@ def test_context_security_bits_match():
     cfg = tparams.test_config()
     got = tsec.context_security_bits(tparams.Context(cfg, device="cpu"))
     assert got == jsec.context_security_bits(jparams.Context(cfg))
+
+
+def test_flagship_parity_config_matches_jax():
+    """The parity chain, field by field, and its security floor
+    (tests/test_security.py) from the config alone: no context is built at
+    2^16."""
+    got, want = tparams.flagship_parity_config(), \
+        jparams.flagship_parity_config()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    bits = tparams._approx_security_bits(got)
+    assert bits == jparams._approx_security_bits(want)
+    assert bits >= 70.0
+
+
+@pytest.mark.parametrize("name,quantum", [("test_config", False),
+                                          ("head_config", True)])
+def test_context_estimate_security_bits_match(name, quantum):
+    cfg = {"test_config": tparams.test_config(),
+           "head_config": tparams.head_config(9, 12)}[name]
+    got = tparams.Context(cfg, device="cpu").estimate_security_bits(quantum)
+    want = jparams.make_context(jparams.CKKSConfig(
+        **dataclasses.asdict(cfg))).estimate_security_bits(quantum)
+    assert got == want
+    assert 0 < got < 1000

@@ -122,15 +122,18 @@ def test_keys_identical(both):
 
 def test_convert_carries_keys_and_plaintexts(both):
     _, j, _, t, vals = both
-    assert torch.equal(convert.secret_key(j["kg"].sk).s_ntt, t["kg"].sk.s_ntt)
-    assert torch.equal(convert.public_key(j["pk"]).data, t["pk"].data)
-    assert torch.equal(convert.kswitch_key(j["relin"]).data, t["relin"].data)
-    gks = convert.galois_keys(j["gks"])
+    assert torch.equal(convert.secret_key(j["kg"].sk, device="cpu").s_ntt,
+                       t["kg"].sk.s_ntt)
+    assert torch.equal(convert.public_key(j["pk"], device="cpu").data,
+                       t["pk"].data)
+    assert torch.equal(convert.kswitch_key(j["relin"], device="cpu").data,
+                       t["relin"].data)
+    gks = convert.galois_keys(j["gks"], device="cpu")
     for g, k in t["gks"].keys.items():
         assert torch.equal(gks.keys[g].data, k.data)
         assert np.array_equal(gks.perms[g], t["gks"].perms[g])
     jpt, pt = j["enc"].encode(vals[0]), t["enc"].encode(vals[0])
-    cpt = convert.plaintext(jpt)
+    cpt = convert.plaintext(jpt, device="cpu")
     assert cpt.scale == pt.scale and torch.equal(cpt.data, pt.data)
 
 
@@ -167,7 +170,8 @@ def _jit_op(j, name, *args):
 def test_unary_ops_identical(both, op, args):
     _, j, _, t, _ = both
     want, want_scale = _jit_op(j, op, *args)
-    got = getattr(t["ev"], op)(convert.ciphertext(j["ct"]), *args)
+    got = getattr(t["ev"], op)(convert.ciphertext(j["ct"], device="cpu"),
+                                 *args)
     assert got.scale == want_scale
     assert _eq(got.data, want)
 
@@ -179,7 +183,8 @@ def test_multiply_relinearize_identical(both):
     jm = _jit(lambda x, y: jev.multiply(JCiphertext(x, a.scale),
                                         JCiphertext(y, a.scale)).data,
               a.data, b.data)
-    tm = tev.multiply(convert.ciphertext(a), convert.ciphertext(b))
+    tm = tev.multiply(convert.ciphertext(a, device="cpu"),
+                      convert.ciphertext(b, device="cpu"))
     assert _eq(tm.data, jm)
     jr = _jit(lambda x: jev.relinearize(JCiphertext(x, tm.scale)).data, jm)
     tr = tev.relinearize(tm)
