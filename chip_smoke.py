@@ -6,7 +6,8 @@ With no argument it runs bootstrap, head and model, in this order; naming
 phases runs only those (``layer`` runs only when named: the model's layer
 0 is the same layer on the same input, and reports the same numbers).
 
-1. Builds the NTT kernels (moai_tpu_torch/csrc/ntt.cu) with nvcc for sm_90a.
+1. Builds the kernels (moai_tpu_torch/csrc/ntt.cu and csrc/limb.cu) with
+   nvcc for sm_90a, one nvcc per source, in parallel.
 2. bootstrap: at N=2^16 on flagship_config (entry.build_bootstrap: 32768
    slots, L 74 = q0 pair + 20 data pairs + 16 boot pairs, K 13, dnum 6,
    Galois keys for every CoeffToSlot/SlotToCoeff step and the conjugation,
@@ -16,10 +17,13 @@ phases runs only those (``layer`` runs only when named: the model's layer
    context and on limb slices (torch.equal), and times both at [8, 2, 87,
    2^16] beside the memory bound (one call per CUDA-event pair, and the
    device time per call of each of its two kernels from torch.profiler);
+   holds each limb kernel torch.equal to its plain version at this
+   chain's shapes (check_limb_kernels) and times both the same way;
    then one pass of make_refresh over BOOT_BATCH ciphertexts of U(-0.8,
    0.8) slot values, each its own, from n_q0 + 2 limbs to the 42-limb data
-   chain, with the launch counts set to 0 just before (both kernels must
-   have launched): seconds per pass, per ciphertext and per stage (ModRaise,
+   chain, with the launch counts set to 0 just before (every kernel must
+   have launched: both NTT kernels and the four limb kernels): seconds
+   per pass, per ciphertext and per stage (ModRaise,
    each CoeffToSlot level, EvalMod real and imaginary, each SlotToCoeff
    level, the card synchronized between stages), the device's busy share
    and top kernels (torch.profiler), peak memory; then the decrypted
@@ -28,39 +32,41 @@ phases runs only those (``layer`` runs only when named: the model's layer
 3. head: the encrypted attention head at BERT-base head width (d_model
    768, head_dim 64, 128 tokens, 128 interleaved inputs, logN 15, L 34)
    with weights drawn at BERT-base magnitude: after set-up, the same check
-   and timing on its context (all 45 limbs and slices, [8, 2, 45, 2^15]);
-   then one pass with the launch counts set to 0 just before (both kernels
+   and timing on its context (all 45 limbs and slices, [8, 2, 45, 2^15];
+   the limb kernels but diag_mac); then one pass with the launch counts
+   set to 0 just before (the NTT kernels, limb_ew, base_conv and ks_mac
    must have launched), decrypted and compared with the float64 oracle.
 4. model: the stacked encoder at full BERT-base width, MODEL_LAYERS of its
-   12 layers (entry.build_model: d_model 768, 12 heads of 64, d_inter
-   3072, 128 tokens, 128 inputs, logN 15, L 28, DepthPlan(5, 5, 2, 0, 16),
+   12 layers (entry.build_model: d_model 768, 12 heads of 64, d_inter 3072,
+   128 tokens, 128 inputs, logN 15, L 28, DepthPlan(5, 5, 2, 0, 16),
    weights synthesized by load_reference_layer, domains from one
    calibrate_domains over every layer, the harness Recryptor as its
    refresh): set-up seconds, the same kernel check and timing on its
    context (all 38 limbs and slices, [8, 2, 38, 2^15]), then one pass with
-   the launch counts set to 0 just before (both kernels must have
-   launched).  Layer 0 runs with utils.debug.OpTrace on the evaluator and
-   under torch.profiler (device time by kernel and the busy share), the
-   later layers on the host clock; each layer's seconds, the seconds
-   inside its refreshes, its peak memory (layer 0: by stage).  After each
-   layer (EncryptedBertModel's on_layer): its state saved with
-   serial.save_layer_state into a temporary directory, loaded back onto
-   the card and held torch.equal to the ciphertext in memory (gated), save
-   and load seconds and the file's bytes; then the decrypted output
-   against the chained float64 oracle (Model.oracle, gated at LAYER_ATOL)
-   and against plain_bert_layer chained (reported).  The launches of these
-   checks are not counted as the path's.  Ends with the OpTrace summary
-   of layer 0: op counts and the lowest n_q.
+   the launch counts set to 0 just before (the kernels the head needs must
+   have launched).  Layer 0 runs with utils.debug.OpTrace on the evaluator
+   and under torch.profiler (device time by kernel and the busy share), the
+   later layers on the host clock; each layer's seconds, the seconds inside
+   its refreshes, its peak memory (layer 0: by stage). After each layer
+   (EncryptedBertModel's on_layer): its state saved with
+   serial.save_layer_state into a temporary directory, loaded back onto the
+   card and held torch.equal to the ciphertext in memory (gated), save and
+   load seconds and the file's bytes; then the decrypted output against the
+   chained float64 oracle (Model.oracle, gated at LAYER_ATOL) and against
+   plain_bert_layer chained (reported).  The launches of these checks are
+   not counted as the path's.  Ends with the OpTrace summary of layer 0: op
+   counts and the lowest n_q.
 5. layer (only when named): one encoder layer at the same width and chain
    (entry.build_layer): set-up, the same kernel check, one pass traced by
    torch.profiler, its seconds, peak memory and refresh seconds, the
    decrypted output against the float64 oracle (gated) and against
    plain_bert_layer (reported).
 
-Prints a {"kernels": [...]} line, one row per kernel and path: each row's
-check and timings come from that path's context and its launches from
-that path's run, then the card's name and power limit, and as its last
-line {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
+Prints a {"kernels": [...]} line, one row per kernel and path (diag_mac
+on the bootstrap only): each row's check and timings come from that
+path's context and its launches from that path's run, then the card's
+name and power limit, and as its last line {"ok": true, "device":
+{...}}.  Exits non-zero, printing no result,
 without a CUDA card or without the package beside it.
 """
 
@@ -114,10 +120,28 @@ LAYER_STAGES = ["heads: Q/K, QK^T, exp, sums", "heads: inverse, "
 # logN 15 and 9.3e-5 on a mixed data/boot chain.
 BOOT_BATCH = 2
 BOOT_ATOL = 2e-3
+# Each kernel: what it replaces in the JAX package (a Pallas kernel, or
+# jnp code that XLA fuses) and its source.
+NTT_SRC, LIMB_SRC = "moai_tpu_torch/csrc/ntt.cu", "moai_tpu_torch/csrc/limb.cu"
 KERNELS = {
-    "ntt_fwd": "moai_tpu/pallas_ntt.py:282",
-    "ntt_inv": "moai_tpu/pallas_ntt.py:301",
+    "ntt_fwd": ("moai_tpu/pallas_ntt.py:282", NTT_SRC),
+    "ntt_inv": ("moai_tpu/pallas_ntt.py:301", NTT_SRC),
+    "limb_ew": ("moai_tpu/mod_arith.py:96 (jnp mont_mul; to_mont :124, "
+                "from_mont :129, add/sub/neg_mod :151-161)", LIMB_SRC),
+    "base_conv": ("moai_tpu/evaluator.py:248 (jnp base extension of "
+                  "_ks_decompose; _mod_down_p :340, boot/bootstrap.py:124 "
+                  "modraise)", LIMB_SRC),
+    "ks_mac": ("moai_tpu/evaluator.py:307 (jnp digit MAC of "
+               "_ks_mac_moddown; rotate_hoisted :456)", LIMB_SRC),
+    "diag_mac": ("moai_tpu/boot/linear.py:59 (jnp multiply_plain + add_mod "
+                 "sum of apply_diagonals)", LIMB_SRC),
 }
+# The kernels each path must launch: diag_mac serves the bootstrap's linear
+# transforms only.
+PATH_KERNELS = {"bootstrap": list(KERNELS),
+                "head": [k for k in KERNELS if k != "diag_mac"],
+                "model": [k for k in KERNELS if k != "diag_mac"],
+                "layer": [k for k in KERNELS if k != "diag_mac"]}
 
 
 START = time.time()
@@ -157,17 +181,44 @@ def kernel_name(key: str) -> str:
 
 
 def device_ms(fn, calls: int = 10) -> dict:
-    """Device time per call of each CUDA kernel that fn() launches, from
-    torch.profiler over ``calls`` calls."""
+    """Device time per launch of each CUDA kernel that fn() launches (each
+    once per call), from torch.profiler over ``calls`` calls.  The tracer
+    may drop some kernels' records, so each time is divided by the
+    launches it recorded, and a trace that recorded none is taken again
+    (at most three times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {kernel_name(e.key): e.self_device_time_total / 1e3 / calls
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {kernel_name(e.key): e.self_device_time_total / 1e3 / e.count
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total}
+        if out:
+            return out
+    return out
+
+
+def launch_counts() -> dict:
+    from moai_tpu_torch import limb_cuda, ntt_cuda
+    return {**ntt_cuda.launches, **limb_cuda.launches}
+
+
+def reset_launches() -> None:
+    from moai_tpu_torch import limb_cuda, ntt_cuda
+    ntt_cuda.reset_launches()
+    limb_cuda.reset_launches()
+
+
+def require_launches(path: str, launches: dict, kern: dict) -> None:
+    """Each kernel of ``path`` launched in its pass; records the counts."""
+    for k in PATH_KERNELS[path]:
+        if launches[k] <= 0:
+            raise SystemExit(f"{k} was not launched by the {path}")
+        kern[k]["launches"] = launches[k]
 
 
 def random_residues(qs: torch.Tensor, lead: tuple, N: int) -> torch.Tensor:
@@ -177,8 +228,9 @@ def random_residues(qs: torch.Tensor, lead: tuple, N: int) -> torch.Tensor:
     return r.remainder_(qs.reshape(-1, 1))
 
 
-def check_kernels(ctx) -> dict:
-    """Kernel vs plain on the card; returns per-kernel measurements."""
+def check_kernels(ctx, path: str) -> dict:
+    """Kernels vs plain on the card at this path's context; returns the
+    per-kernel measurements."""
     from moai_tpu_torch import ntt as nt
     from moai_tpu_torch import ntt_cuda
     tb = ctx.dev["ntt"]
@@ -216,6 +268,133 @@ def check_kernels(ctx) -> dict:
     if not torch.equal(ntt_cuda.intt_cuda(fwd, cuda_tb), x):
         raise SystemExit("intt(ntt(x)) != x on the card")
     log("round trip intt(ntt(x)) == x")
+    del x, fwd
+    res.update(check_limb_kernels(ctx, path))
+    return res
+
+
+def measure(name: str, pairs, kern, plain, nbytes: int, shape) -> dict:
+    """Hold each (kernel call, plain call) of ``pairs`` torch.equal (every
+    tensor of a tuple result), then time ``kern`` and ``plain`` as
+    check_kernels times the NTT, beside the byte bound."""
+    err = 0
+    for i, (got_fn, want_fn) in enumerate(pairs):
+        got, want = got_fn(), want_fn()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err = max(err, int((g - w).abs().max()) if g.shape == w.shape
+                      else 1 << 62)
+            if not torch.equal(g, w):
+                raise SystemExit(f"{name} differs from its plain version in "
+                                 f"case {i}: max |diff| {err}")
+        del got, want
+    ms = time_ms(kern)
+    dev = device_ms(kern)
+    plain_ms = time_ms(plain, reps=3)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"{name}: equal to plain in {len(pairs)} cases; {shape}: kernel "
+        f"{ms:.4f} ms, device {json.dumps(dev)}, plain {plain_ms:.4f} ms, "
+        f"memory bound {bound:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                shape=list(shape), device_ms=dev)
+
+
+def check_limb_kernels(ctx, path: str) -> dict:
+    """The limb kernels against their plain versions on the card, at this
+    path's chain: ciphertexts [B, 2, L, N] (B = BOOT_BATCH on the
+    bootstrap, else 8, as the NTT check), the key-switch decomposition of
+    their c1 at the top level and at a level with a partial digit, the
+    mod-down, ModRaise's conversion, the MAC against keys of the path's
+    dtype (int32 on the bootstrap) and of the other, with and without the
+    hoisted permutation, and (bootstrap) a giant step of 8 diagonals, the
+    most lt_group 5 gives.  Each timed at its main case."""
+    from moai_tpu_torch import mod_arith as ma
+    dv, L, K, N = ctx.dev, ctx.L, ctx.K, ctx.cfg.N
+    boot = path == "bootstrap"
+    B = BOOT_BATCH if boot else 8
+    torch.manual_seed(1)
+    qall = dv["q"]
+    q, rinv = qall[:L].reshape(-1, 1), dv["rinv"][:L].reshape(-1, 1)
+    a, b = (random_residues(qall[:L], (B, 2), N) for _ in range(2))
+    col = random_residues(qall[:L], (B, 1), 1)
+    u = torch.randint(0, 1 << 30, (B, 1, N), device=a.device)
+    r2 = dv["r2"][:L].reshape(-1, 1)
+    res = {}
+    res["limb_ew"] = measure("limb_ew", [
+        (lambda: ma.add_mod(a, b, q), lambda: ma.add_mod_plain(a, b, q)),
+        (lambda: ma.sub_mod(a, b, q), lambda: ma.sub_mod_plain(a, b, q)),
+        (lambda: ma.neg_mod(a, q), lambda: ma.neg_mod_plain(a, q)),
+        (lambda: ma.mont_mul(a, b, q, rinv),
+         lambda: ma.mont_mul_plain(a, b, q, rinv)),
+        (lambda: ma.mont_mul(a, col, q, rinv),
+         lambda: ma.mont_mul_plain(a, col, q, rinv)),
+        (lambda: ma.to_mont(u, q, rinv, r2),
+         lambda: ma.mont_mul_plain(u, r2, q, rinv)),
+        (lambda: ma.from_mont(a, q, rinv),
+         lambda: ma.from_mont_plain(a, q, rinv)),
+        (lambda: ma.sub_mont_mul(a, b, col, q, rinv),
+         lambda: ma.sub_mont_mul_plain(a, b, col, q, rinv))],
+        lambda: ma.mont_mul(a, b, q, rinv),
+        lambda: ma.mont_mul_plain(a, b, q, rinv),
+        3 * a.numel() * 8, tuple(a.shape))
+
+    def ks_args(n_q):
+        D = sum(1 for lo, _ in ctx.digit_ranges if lo < n_q)
+        qt = torch.cat([qall[:n_q], qall[L:]]).reshape(-1, 1)
+        rt = torch.cat([dv["rinv"][:n_q], dv["rinv"][L:]]).reshape(-1, 1)
+        hat = dv["ks_hat_mm"][n_q, :D]
+        hat_t = torch.cat([hat[..., :n_q], hat[..., L:]], dim=-1)
+        return D, qt, rt, (a[:, 1, :n_q].contiguous(), dv["ks_q_pad"],
+                           dv["ks_rinv_pad"], dv["ks_hatinv_mont"][n_q, :D],
+                           hat_t, qt, rt)
+    D, qt, rt, top = ks_args(L)
+    _, _, _, mid = ks_args(L - ctx.alpha // 2 - 1)
+    n0 = ctx.n_q0
+    lam = a[:, :, :n0].contiguous()
+    k = torch.randint(0, n0 + 1, (B, 2, N), device=a.device)
+    modraise = (lam, None, None, None,
+                random_residues(qall[:L], (1, n0), 1)[..., 0], q, rinv, k,
+                dv["r1"][:L])
+    cp = random_residues(qall[L:], (B, 2), N)
+    moddown = (cp, qall[L:], dv["rinv"][L:], dv["pdown_hatinv_mont"],
+               dv["pdown_hat_modq_mm"][None, :, :L], q, rinv)
+    T = L + K
+    res["base_conv"] = measure("base_conv", [
+        (lambda c=c: ma.base_conv(*c), lambda c=c: ma.base_conv_plain(*c))
+        for c in (top, mid, moddown, modraise)],
+        lambda: ma.base_conv(*top), lambda: ma.base_conv_plain(*top),
+        8 * B * N * (L + D * T), (B, L, N))
+    del mid, modraise, moddown, cp, lam
+
+    y = random_residues(qt.reshape(-1), (B, D), N)
+    main_dtype = torch.int32 if boot else torch.int64
+    keys = {dt: [random_residues(qall, (ctx.dnum, 2), N).to(dt)
+                 for _ in range(3)] for dt in (torch.int32, torch.int64)}
+    perm = torch.stack([torch.randperm(N, device=a.device) for _ in range(3)])
+    cases = []
+    for dt, ks in keys.items():
+        cases.append((lambda ks=ks: ma.ks_mac(y, ks[0], L, qt, rt),
+                      lambda ks=ks: ma.ks_mac_plain(y, ks[0], L, qt, rt)))
+        cases.append((lambda ks=ks: ma.ks_mac(y, ks, L, qt, rt, perm),
+                      lambda ks=ks: ma.ks_mac_plain(y, ks, L, qt, rt, perm)))
+    key = keys[main_dtype][0]
+    res["ks_mac"] = measure(
+        "ks_mac", cases, lambda: ma.ks_mac(y, key, L, qt, rt),
+        lambda: ma.ks_mac_plain(y, key, L, qt, rt),
+        8 * B * D * T * N + key.element_size() * D * 2 * T * N
+        + 8 * 2 * B * T * N, (B, D, T, N))
+    del y, keys, cases, key
+    if boot:
+        cts = [random_residues(qall[:L], (B, 2), N) for _ in range(8)]
+        pts = random_residues(qall[:L], (8,), N)
+        res["diag_mac"] = measure(
+            "diag_mac", [(lambda: ma.diag_mac(cts, pts, q, rinv),
+                          lambda: ma.diag_mac_plain(cts, pts, q, rinv))],
+            lambda: ma.diag_mac(cts, pts, q, rinv),
+            lambda: ma.diag_mac_plain(cts, pts, q, rinv),
+            8 * (9 * cts[0].numel() + pts.numel()), (8, B, 2, L, N))
     return res
 
 
@@ -223,8 +402,8 @@ def profile_summary(prof, wall: float) -> dict:
     """Device time by kernel from a stopped torch.profiler run, read from
     its raw events (``key_averages()`` parses every event in Python: ~2
     minutes for the half a million kernels of a layer pass): the wall
-    time, the top 10 kernels and every NTT kernel, and the device's busy
-    share of ``wall``."""
+    time, the top 10 kernels, every NTT kernel and every limb kernel, and
+    the device's busy share of ``wall``."""
     from torch.autograd import DeviceType
     by_name = {}
     for e in prof.profiler.kineto_results.events():
@@ -241,7 +420,9 @@ def profile_summary(prof, wall: float) -> dict:
             "top": [{"s": s, "calls": n, "name": k[:80]}
                     for s, n, k in rows[:10]],
             "ntt": [{"s": s, "calls": n, "name": kernel_name(k)}
-                    for s, n, k in rows if "ntt_" in k]}
+                    for s, n, k in rows if "ntt_" in k],
+            "limb": [{"s": s, "calls": n, "name": kernel_name(k)}
+                     for s, n, k in rows if kernel_name(k) in KERNELS]}
 
 
 def profile_pass(fn):
@@ -287,7 +468,6 @@ def run_bootstrap() -> dict:
     one timed and traced pass with the launch counts set to 0 just before,
     the check against the input.  Returns the kernels' measurements with
     the pass's launches."""
-    from moai_tpu_torch import ntt_cuda
     from moai_tpu_torch.entry import build_bootstrap
     from moai_tpu_torch.params import flagship_config
     t0 = time.time()
@@ -309,7 +489,7 @@ def run_bootstrap() -> dict:
         f"{tuple(boot.x_data.shape)}; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
 
-    kern = check_kernels(ctx)
+    kern = check_kernels(ctx, "bootstrap")
 
     stages, mark = [], [0.0]
 
@@ -321,14 +501,14 @@ def run_bootstrap() -> dict:
 
     bt.on_stage = on_stage
     bt.encode_s = 0.0
-    ntt_cuda.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     mark[0] = time.perf_counter()
     out, prof = profile_pass(lambda: boot.fn(boot.x_data))
     bt.on_stage = None
     secs = prof["wall_s"]
-    launches = dict(ntt_cuda.launches)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     peak_reserved = torch.cuda.max_memory_reserved()
     log(f"bootstrap: {secs:.2f} s per pass of {BOOT_BATCH} ciphertexts, "
@@ -339,10 +519,7 @@ def run_bootstrap() -> dict:
         f"{peak / 2**30:.2f} GiB allocated, {peak_reserved / 2**30:.2f} GiB "
         f"reserved; output n_q={out.n_q}; launches {launches}")
     log("bootstrap profile:", json.dumps(prof))
-    for k in KERNELS:
-        if launches[k] <= 0:
-            raise SystemExit(f"{k} was not launched by the bootstrap")
-        kern[k]["launches"] = launches[k]
+    require_launches("bootstrap", launches, kern)
     if out.n_q != ctx.L - 2 * bt.levels or out.n_q != boot.n_out:
         raise SystemExit(f"bootstrap output at {out.n_q} limbs, not "
                          f"{ctx.L - 2 * bt.levels}")
@@ -378,9 +555,8 @@ def bert_weights(rng, d_model: int, head_dim: int) -> dict:
 
 def run_head() -> dict:
     """The head phase: set-up, kernels against plain at its chain, one
-    timed pass that must launch both kernels, the oracle check.  Returns
-    the kernels' measurements with the pass's launches."""
-    from moai_tpu_torch import ntt_cuda
+    timed pass that must launch each of its kernels, the oracle check.
+    Returns the kernels' measurements with the pass's launches."""
     from moai_tpu_torch.entry import build_head
     t0 = time.time()
     head = build_head(**HEAD, device="cuda",
@@ -391,24 +567,21 @@ def run_head() -> dict:
         f"{time.time() - t0:.1f} s; L={head.ctx.L} K={head.ctx.K} "
         f"x {tuple(head.x_data.shape)}")
 
-    kern = check_kernels(head.ctx)
+    kern = check_kernels(head.ctx, "head")
 
-    ntt_cuda.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.time()
     out = head.fn(head.x_data)
     torch.cuda.synchronize()
     secs = time.time() - t0
-    launches = dict(ntt_cuda.launches)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"head: {secs:.2f} s, {secs / HEAD['input_count']:.4f} s per input, "
         f"peak {peak / 2**30:.2f} GiB, output n_q={out.n_q}, "
         f"launches {launches}")
-    for k in KERNELS:
-        if launches[k] <= 0:
-            raise SystemExit(f"{k} was not launched by the head")
-        kern[k]["launches"] = launches[k]
+    require_launches("head", launches, kern)
 
     got = head.decode(out)
     want = head.oracle()
@@ -439,7 +612,6 @@ def run_layer() -> dict:
     pass with the launch counts set to 0 just before, timed on the host
     clock and traced by torch.profiler, then the oracle check.  Returns the
     kernels' measurements with the pass's launches."""
-    from moai_tpu_torch import ntt_cuda
     from moai_tpu_torch.entry import build_layer
     from moai_tpu_torch.models.bert import BertDims, DepthPlan
     t0 = time.time()
@@ -460,15 +632,15 @@ def run_layer() -> dict:
         f"{d['ln2'][1] / d['ln2'][0]:.2f}); the linear rsqrt init "
         f"diverges past hi/lo ~20")
 
-    kern = check_kernels(layer.ctx)
+    kern = check_kernels(layer.ctx, "layer")
 
-    ntt_cuda.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, prof = profile_pass(lambda: layer.fn(layer.x_data))
     secs = prof["wall_s"]
-    launches = dict(ntt_cuda.launches)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     peak_reserved = torch.cuda.max_memory_reserved()
     refresh_s = sum(r[3] for r in layer.refresh_log)
@@ -480,10 +652,7 @@ def run_layer() -> dict:
         f"{peak_reserved / 2**30:.2f} GiB reserved; output "
         f"n_q={out.n_q}; launches {launches}; by stage (s): "
         f"{json.dumps(stages)}")
-    for k in KERNELS:
-        if launches[k] <= 0:
-            raise SystemExit(f"{k} was not launched by the layer")
-        kern[k]["launches"] = launches[k]
+    require_launches("layer", launches, kern)
 
     got = layer.decode(out)
     del out
@@ -542,7 +711,6 @@ def run_model() -> dict:
     check (both gated).  Returns the kernels' measurements with the
     pass's launches, less those of the checks between layers."""
     from torch.profiler import ProfilerActivity, profile
-    from moai_tpu_torch import ntt_cuda
     from moai_tpu_torch.entry import build_model
     from moai_tpu_torch.models.bert import (BertDims, DepthPlan,
                                             plain_bert_layer)
@@ -567,7 +735,7 @@ def run_model() -> dict:
             f"{d['gelu']:.4f}, LayerNorm S domains {ln1} (hi/lo "
             f"{ln1[1] / ln1[0]:.2f}) and {ln2} (hi/lo {ln2[1] / ln2[0]:.2f})")
 
-    kern = check_kernels(model.ctx)
+    kern = check_kernels(model.ctx, "model")
 
     ev, n_ref = first.ev, len(LAYER_STAGES)
     trace = OpTrace()
@@ -590,7 +758,7 @@ def run_model() -> dict:
             prof.stop()
             rec["stages"] = layer_stages(model.refresh_log[:n_ref], mark[0])
             prof_rec = profile_summary(prof, secs)
-        before = dict(ntt_cuda.launches)
+        before = launch_counts()
         torch.cuda.reset_peak_memory_stats()
         rec.update(checkpoint(model, ct, i))
         rec["checkpoint_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -608,8 +776,9 @@ def run_model() -> dict:
         plain_in[0] = plain
         rows = np.arange(model.dims.num_row)[None, :] < model.lens[:, None]
         rec["err_plain"] = float(np.abs(got - plain)[rows].max())
+        after = launch_counts()
         for k in KERNELS:
-            check_launches[k] += ntt_cuda.launches[k] - before[k]
+            check_launches[k] += after[k] - before[k]
         log(f"model layer {i}: {json.dumps(rec)}")
         if prof_rec is not None:
             log(f"model layer {i} profile:", json.dumps(prof_rec))
@@ -619,7 +788,7 @@ def run_model() -> dict:
         torch.cuda.synchronize()
         mark[0] = time.perf_counter()
 
-    ntt_cuda.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     ev.debug = trace
     prof.start()
@@ -630,17 +799,14 @@ def run_model() -> dict:
     finally:
         ev.debug = None
     secs = time.perf_counter() - t1
-    launches = {k: ntt_cuda.launches[k] - check_launches[k]
-                for k in KERNELS}
+    total = launch_counts()
+    launches = {k: total[k] - check_launches[k] for k in KERNELS}
     log(f"model: {MODEL_LAYERS} layers and their checks in {secs:.2f} s; "
         f"output n_q={out.n_q}; launches in the layers {launches}, in the "
         f"checks between them (not counted) {check_launches}; OpTrace of "
         f"layer 0: {len(trace.events)} ops {json.dumps(trace.summary())}, "
         f"lowest n_q {trace.min_n_q()}")
-    for k in KERNELS:
-        if launches[k] <= 0:
-            raise SystemExit(f"{k} was not launched by the model")
-        kern[k]["launches"] = launches[k]
+    require_launches("model", launches, kern)
     if out.n_q != first.n_att:
         raise SystemExit(f"model output at {out.n_q} limbs, not "
                          f"{first.n_att}")
@@ -651,14 +817,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from moai_tpu_torch import ntt_cuda
+    from moai_tpu_torch import cuda_build
 
     t0 = time.time()
-    lib, msgs = ntt_cuda.build()
-    log(f"built {lib.name} in {time.time() - t0:.1f} s")
-    for line in msgs.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log("  nvcc:", line.strip())
+    for lib, msgs in cuda_build.build().values():
+        log(f"built {lib.name} ({time.time() - t0:.1f} s since the start of "
+            f"the builds, which run in parallel)")
+        for line in msgs.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log("  nvcc:", line.strip())
     name_power = card()
     log(f"card: {name_power}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
@@ -678,13 +845,13 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": "moai_tpu_torch/csrc/ntt.cu",
-         "replaces": KERNELS[k], "launches": m[k]["launches"],
+        {"name": k, "route": "cuda", "source": KERNELS[k][1],
+         "replaces": KERNELS[k][0], "launches": m[k]["launches"],
          "max_abs_err": m[k]["max_abs_err"], "ms": m[k]["ms"],
          "plain_ms": m[k]["plain_ms"], "bound_ms": m[k]["bound_ms"],
          "bound_by": "bytes", "library_ms": None, "path": path,
          "shape": m[k]["shape"], "device_ms": m[k]["device_ms"]}
-        for path, m in paths.items() for k in KERNELS]}))
+        for path, m in paths.items() for k in PATH_KERNELS[path]]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """moai_tpu_torch — the CKKS FHE library and encrypted-attention runtime of
-``moai_tpu``, in PyTorch, with hand-written CUDA NTT kernels for Hopper.
+``moai_tpu``, in PyTorch, with hand-written CUDA kernels for Hopper (the
+NTT and the limb arithmetic).
 
 Residues are int64 tensors holding the same Montgomery values the JAX
 package holds in uint32, so every integer result is bit-identical to it.

@@ -6,6 +6,8 @@ Port of ``moai_tpu/boot/bootstrap.py`` (``Bootstrapper``, ``make_refresh``):
   estimate (exact up to +-1 multiple of q0, absorbed by EvalMod's +-K
   range); the estimate's products, two-term sum, round-half-to-even and
   cast are the JAX package's, so the raised residues are bit-identical.
+  The conversion itself is ``mod_arith.base_conv`` (a kernel on the
+  card); the estimate stays torch ops, so it rounds as on the CPU.
 - CoeffToSlot/SlotToCoeff are BSGS levels over the diagonals of
   ``boot/linear.py`` (dense at n <= 512, else radix-factored and grouped),
   with q0/(2*pi*Delta) and the output scale folded into the last
@@ -193,15 +195,10 @@ class Bootstrapper:
                            q0v, rinv0)                     # true, [..,P,n0,N]
         f = torch.sum(lam.to(torch.float32) * self._mr_qinv_f, dim=-2)
         k = torch.round(f).to(torch.int64)                 # [..., P, N]
+        # base conversion of lam to all L limbs, less k * q0
         qL, rinvL = ev._q(L), ev._rinv(L)
-        acc = None
-        for i in range(n0):
-            hat = self._mr_hat_mm[i].reshape(-1, 1)        # [L, 1]
-            term = ma.mont_mul(lam[..., i:i + 1, :], hat, qL, rinvL)
-            acc = term if acc is None else ma.add_mod(acc, term, qL)
-        kq0 = ma.mont_mul(k[..., None, :], self._mr_q0_mm.reshape(-1, 1),
-                          qL, rinvL)
-        acc = ma.sub_mod(acc, kq0, qL)
+        acc = ma.base_conv(lam, None, None, None, self._mr_hat_mm[None], qL,
+                           rinvL, k=k, kq=self._mr_q0_mm)[..., 0, :, :]
         out = ntt(acc, ev.tbd, limb_slice=(0, L))
         return Ciphertext(out, ct.scale, True)
 

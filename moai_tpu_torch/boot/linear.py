@@ -5,8 +5,9 @@ Port of ``moai_tpu/boot/linear.py``.  The host functions that build the
 diagonals (the canonical-embedding matrix, its radix-2 butterfly factors,
 their inverses, composition and grouping) are numpy and copied verbatim.
 ``apply_diagonals`` is the same BSGS schedule in eager PyTorch: one hoisted
-decomposition for the baby rotations, giant rotations on partial sums, one
-composite-level rescale at the end.
+decomposition for the baby rotations, each giant step's products and sum
+in one ``mod_arith.diag_mac`` (a kernel on the card), giant rotations on
+partial sums, one composite-level rescale at the end.
 
 Plaintext diagonals.  The JAX package encodes each diagonal into NTT
 residues where it is used (as jit constants, or collected once by
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import mod_arith as ma
-from ..ciphertext import Ciphertext, Plaintext
+from ..ciphertext import Ciphertext
 from ..encoder import Encoder
 from ..evaluator import Evaluator
 from ..keys import residues_to_ntt
@@ -124,12 +125,10 @@ def apply_diagonals(ev: Evaluator, encoder: Encoder, ct: Ciphertext,
     for gi, ds in sorted(groups.items()):
         pts = diagonal_plaintexts(ev.ctx, [encoded[(gi, d)] for d in ds],
                                   ct.n_q)
-        part = None
-        for d, pt in zip(ds, pts):
-            term = ev.multiply_plain(rot[d % g], Plaintext(pt, scale))
-            part = term if part is None else \
-                Ciphertext(ma.add_mod(part.data, term.data, q), term.scale,
-                           True)
+        # sum_d multiply_plain(rot[d % g], pt_d): one diag_mac
+        part = Ciphertext(ma.diag_mac([rot[d % g].data for d in ds], pts, q,
+                                      ev._rinv(ct.n_q)),
+                          ct.scale * scale, True)
         if gi:
             part = ev.rotate(part, gi)
         total = part if total is None else \

@@ -7,10 +7,14 @@ shared special primes).  Ciphertexts stay in NTT+Montgomery form; rescale
 and key switching round-trip limbs through the coefficient domain with
 ``ntt``/``intt``, which on a CUDA tensor are the hand-written kernels.
 
-Sums of a few canonical residues are accumulated in int64 and reduced once
-(each term is < 2^30, so a sum of up to 2^33 terms cannot overflow); the
-result is the same canonical residue the JAX package's pairwise
-``add_mod`` chain gives.
+The limb arithmetic goes through ``mod_arith``: on a CUDA tensor its
+hand-written kernels (csrc/limb.cu: the elementwise family, the base
+conversions of the key-switch decomposition and the mod-down, the
+key-switch MAC with the hoisted rotations' gather folded in), on a CPU
+tensor the plain torch ops.  The plain loops accumulate a few canonical
+residues in int64 and reduce once (each term is < 2^30, so a sum of up to
+2^33 terms cannot overflow); the result is the same canonical residue the
+JAX package's pairwise ``add_mod`` chain gives.
 """
 
 from __future__ import annotations
@@ -192,16 +196,16 @@ class Evaluator:
         last = intt(a.data[..., ell:ell + 1, :], self.tbd,
                     limb_slice=(ell, ell + 1))
         t = ma.from_mont(last, qe, int(self.ctx.ntt.rinv[ell]))
-        u = (t + (qe >> 1)).remainder_(qe)
+        u = ma.add_mod(t, qe >> 1, qe)
         # u to each remaining modulus (to_mont takes u >= q_j), minus the
         # rounding half per coefficient, then back to the NTT domain
         qj, rinvj = self._q(ell), self._rinv(ell)
         uj = ma.to_mont(u, qj, rinvj, dv["r2"][:ell].reshape(-1, 1))
         uj = ma.sub_mod(uj, dv["resc_half_mod"][ell, :ell].reshape(-1, 1), qj)
         u_ntt = ntt(uj, self.tbd, limb_slice=(0, ell))
-        num = ma.sub_mod(a.data[..., :ell, :], u_ntt, qj)
-        out = ma.mont_mul(num, dv["resc_qlinv_mont"][ell, :ell].reshape(-1, 1),
-                          qj, rinvj)
+        out = ma.sub_mont_mul(a.data[..., :ell, :], u_ntt,
+                              dv["resc_qlinv_mont"][ell, :ell].reshape(-1, 1),
+                              qj, rinvj)
         return self._dbg("rescale", Ciphertext(out, a.scale / qe, True))
 
     def rescale_pair(self, a: Ciphertext) -> Ciphertext:
@@ -238,63 +242,32 @@ class Evaluator:
         nall = L + K
         qt, rinvt = self._qt(n_q)
         D = self._active_digits(n_q)
-        alpha = ctx.alpha
         c = intt(poly_ntt, self.tbd, limb_slice=(0, n_q))
-        # zero-pad the limb axis to D*alpha and fold into digits; the
-        # hat-inverse table is zero on padded positions
-        pad = D * alpha - n_q
-        if pad:
-            c = torch.cat([c, c.new_zeros(c.shape[:-2] + (pad, c.shape[-1]))],
-                          dim=-2)
-        cd = c.reshape(c.shape[:-2] + (D, alpha, c.shape[-1]))
-        qpad = dv["ks_q_pad"][:D * alpha].reshape(D, alpha, 1)
-        rinvpad = dv["ks_rinv_pad"][:D * alpha].reshape(D, alpha, 1)
-        hatinv = dv["ks_hatinv_mont"][n_q, :D].reshape(D, alpha, 1)
-        lam = ma.from_mont(ma.mont_mul(cd, hatinv, qpad, rinvpad),
-                           qpad, rinvpad)               # true, [..., D, a, N]
-        # fast base extension y_t = sum_i lam_i * hat_i (Montgomery out)
+        # fast base extension y_t = sum_i lam_i * hat_i (Montgomery out) of
+        # each digit's alpha limbs; past n_q the hat-inverse table is zero
         hat = dv["ks_hat_mm"][n_q, :D]                  # [D, alpha, nall]
         hat_t = torch.cat([hat[..., :n_q], hat[..., L:]], dim=-1)
-        y = None
-        for a in range(alpha):
-            term = ma.mont_mul(lam[..., :, a, None, :], hat_t[:, a, :, None],
-                               qt, rinvt)
-            y = term if y is None else y.add_(term)
-        y.remainder_(qt)
+        y = ma.base_conv(c, dv["ks_q_pad"], dv["ks_rinv_pad"],
+                         dv["ks_hatinv_mont"][n_q, :D], hat_t, qt, rinvt)
         y_q = ntt(y[..., :n_q, :], self.tbd, limb_slice=(0, n_q))
         y_p = ntt(y[..., n_q:, :], self.tbd, limb_slice=(L, nall))
         return torch.cat([y_q, y_p], dim=-2)            # [..., D, n_t, N]
 
-    def _key_rows(self, key_data, n_q: int, q_limbs: int | None = None):
-        """key [..., dnum, 2, q_limbs+K, N] -> rows for targets Q_l + P,
-        active digits only: [..., D, 2, n_t, N]."""
-        L = q_limbs if q_limbs is not None else self.ctx.L
-        _require(n_q <= L, f"key holds {L} Q limbs, data {n_q}")
-        D = self._active_digits(n_q)
-        kd = key_data[..., :D, :, :, :]
-        return torch.cat([kd[..., :n_q, :], kd[..., L:, :]], dim=-2)
-
-    def _ks_mac_moddown(self, y, key_rows, n_q: int):
-        """MAC the decomposition y [..., D, n_t, N] against key rows
-        [..., D, 2, n_t, N] and mod-down by P -> (d0, d1), each
-        [..., n_q, N].  Leading batch axes broadcast."""
+    def _ks_mac_moddown(self, y, keys, q_limbs, n_q: int, perm=None):
+        """MAC the decomposition y [..., D, n_t, N] against the key rows of
+        ``keys`` (``mod_arith.ks_mac``: one key, or with perm [R, N] one per
+        rotation) and mod-down by P -> (d0, d1), each [..., n_q, N] (with
+        perm [R, ..., n_q, N])."""
+        q_limbs = q_limbs if q_limbs is not None else self.ctx.L
+        _require(n_q <= q_limbs, f"key holds {q_limbs} Q limbs, data {n_q}")
         qt, rinvt = self._qt(n_q)
-        acc0 = acc1 = None
-        for d in range(y.shape[-3]):
-            yd = y[..., d, :, :]
-            t0 = ma.mont_mul(yd, key_rows[..., d, 0, :, :], qt, rinvt)
-            t1 = ma.mont_mul(yd, key_rows[..., d, 1, :, :], qt, rinvt)
-            acc0 = t0 if acc0 is None else acc0.add_(t0)
-            acc1 = t1 if acc1 is None else acc1.add_(t1)
-        acc0.remainder_(qt)
-        acc1.remainder_(qt)
+        acc0, acc1 = ma.ks_mac(y, keys, q_limbs, qt, rinvt, perm)
         return self._mod_down_p(acc0, n_q), self._mod_down_p(acc1, n_q)
 
     def _switch_key(self, poly_ntt, key: KSwitchKey, n_q: int):
         """Hybrid key switch: decompose + extend + NTT once, MAC, mod-down."""
         y = self._ks_decompose(poly_ntt, n_q)
-        return self._ks_mac_moddown(
-            y, self._key_rows(key.data, n_q, key.q_limbs), n_q)
+        return self._ks_mac_moddown(y, key.data, key.q_limbs, n_q)
 
     def _mod_down_p(self, u, n_q: int):
         """Divide a [..., n_q+K, N] NTT poly by P, dropping the P limbs."""
@@ -302,21 +275,15 @@ class Evaluator:
         L, K = self.ctx.L, self.ctx.K
         u_q = u[..., :n_q, :]
         u_p = u[..., n_q:, :]
-        qp = dv["q"][L:].reshape(-1, 1)
-        rinvp = dv["rinv"][L:].reshape(-1, 1)
         cp = intt(u_p, self.tbd, limb_slice=(L, L + K))
-        lam = ma.from_mont(
-            ma.mont_mul(cp, dv["pdown_hatinv_mont"].reshape(-1, 1), qp, rinvp),
-            qp, rinvp)
         qj, rinvj = self._q(n_q), self._rinv(n_q)
-        w = None
-        for i in range(K):
-            hat = dv["pdown_hat_modq_mm"][i, :n_q].reshape(-1, 1)
-            term = ma.mont_mul(lam[..., i:i + 1, :], hat, qj, rinvj)
-            w = term if w is None else w.add_(term)
-        w_ntt = ntt(w.remainder_(qj), self.tbd, limb_slice=(0, n_q))
+        w = ma.base_conv(cp, dv["q"][L:], dv["rinv"][L:],
+                         dv["pdown_hatinv_mont"],
+                         dv["pdown_hat_modq_mm"][None, :, :n_q], qj,
+                         rinvj)[..., 0, :, :]
+        w_ntt = ntt(w, self.tbd, limb_slice=(0, n_q))
         pinv = dv["pdown_pinv_mont"][:n_q].reshape(-1, 1)
-        return ma.mont_mul(ma.sub_mod(u_q, w_ntt, qj), pinv, qj, rinvj)
+        return ma.sub_mont_mul(u_q, w_ntt, pinv, qj, rinvj)
 
     # -- Galois / rotations ----------------------------------------------
     def _perm(self, g: int) -> torch.Tensor:
@@ -402,14 +369,11 @@ class Evaluator:
         for s0 in range(0, len(steps), chunk):
             es = elts[s0:s0 + chunk]
             p = torch.stack([self._perm(g) for g in es])    # [R, N]
-            kr = self._key_rows(torch.stack(
-                [self.galois_keys.keys[g].data for g in es]), n_q, q_limbs)
-            if a.data.dim() > 3:                            # broadcast batch
-                kr = kr.reshape((kr.shape[0],) + (1,) * (a.data.dim() - 3)
-                                + kr.shape[1:])
-            # digits of sigma_g(c1) = sigma_g(digits of c1): a gather
-            y_r = y[..., p].movedim(-2, 0)                  # [R, ..., D, n_t, N]
-            d0, d1 = self._ks_mac_moddown(y_r, kr, n_q)
+            # digits of sigma_g(c1) = sigma_g(digits of c1): the MAC reads
+            # y through each rotation's permutation
+            d0, d1 = self._ks_mac_moddown(
+                y, [self.galois_keys.keys[g].data for g in es], q_limbs,
+                n_q, perm=p)
             c0 = a.data[..., 0, :, :][..., p].movedim(-2, 0)
             outs.append(torch.stack([ma.add_mod(c0, d0, q), d1], dim=-3))
         return self._dbg("rotate_hoisted", Ciphertext(

@@ -179,8 +179,8 @@ def _axis_ntt_dif(x, stages, bitrev, q):
         v = xv[..., 1, :, :]
         twp = tw[:, 0].reshape(-1, 1, half, 1)   # [L, 1, half, 1]
         tws = tw[:, 1].reshape(-1, 1, half, 1)
-        s = ma.add_mod(u, v, q4)
-        d = ma.shoup_mul(ma.sub_mod(u, v, q4), twp, tws, q4)
+        s = ma.add_mod_plain(u, v, q4)
+        d = ma.shoup_mul(ma.sub_mod_plain(u, v, q4), twp, tws, q4)
         x = torch.stack([s, d], dim=-3).reshape(lead + (n, m))
         t = half
     return torch.index_select(x, -2, bitrev)
@@ -203,8 +203,8 @@ def _axis_intt_dit(x, stages_inv, bitrev, q):
         twp = tw[:, 0].reshape(-1, 1, half, 1)
         tws = tw[:, 1].reshape(-1, 1, half, 1)
         bw = ma.shoup_mul(b, twp, tws, q4)
-        u = ma.add_mod(a, bw, q4)
-        v = ma.sub_mod(a, bw, q4)
+        u = ma.add_mod_plain(a, bw, q4)
+        v = ma.sub_mod_plain(a, bw, q4)
         x = torch.stack([u, v], dim=-3).reshape(lead + (n, m))
     return x
 

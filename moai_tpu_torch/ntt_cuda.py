@@ -1,10 +1,10 @@
 """Bindings of the hand-written Hopper NTT kernels (csrc/ntt.cu).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, into ``_build/`` beside this file
-(named by the source's hash, so an edited source rebuilds), and loaded with
-ctypes.  Nothing is compiled or loaded at import: a machine without the
-CUDA toolkit imports this module and only fails when a kernel is asked for.
+with a plain C interface at first use and loaded with ctypes
+(``cuda_build``).  Nothing is compiled or loaded at import: a machine
+without the CUDA toolkit imports this module and only fails when a kernel
+is asked for.
 
 ``ntt_cuda``/``intt_cuda`` take a CUDA int64 tensor ``[..., L_act, N]``,
 2^9 <= N <= 2^16, and launch the kernels, or raise; they never fall back to
@@ -18,22 +18,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from . import cuda_build
 from .ntt import NttTables, _bitrev_perm, _pow_mod_vec, _shoup_vec
 from .primes import inv_mod
 
-SRC = Path(__file__).resolve().parent / "csrc" / "ntt.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the kernels tile N = n1 * n2 with n1, n2 = _split(N) and at most 256 x
 # 256 points (a 256-point tile of 32 transforms is 35 KB of shared memory)
 MIN_LOG_N, MAX_LOG_N = 9, 16
@@ -46,37 +38,9 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the NTT kernels are compiled on "
-                           "a machine with the CUDA toolkit")
-    return path
-
-
-def build() -> tuple[Path, str]:
-    """Compile csrc/ntt.cu unless this source's library exists; returns its
-    path and nvcc's messages (register and shared-memory use), which are
-    empty when nothing was compiled."""
-    tag = hashlib.sha256(SRC.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libmoai_ntt_{tag}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stderr
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+    lib = cuda_build.load("ntt")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.moai_ntt_fwd.argtypes = [p, p, p, ll, i, i, p, p, p, p, p]
     lib.moai_ntt_inv.argtypes = [p, p, p, ll, i, i, p, p, p, p, p]

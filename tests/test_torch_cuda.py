@@ -1,8 +1,9 @@
-"""moai_tpu_torch on a CUDA card: the NTT kernels against their plain
-versions, a small encrypted head against the float64 oracle, a small
-bootstrap against the same bootstrap on the CPU, serial loads onto the
-card against loads onto the CPU, and a small two-layer model resumed from
-its layer-0 checkpoint against the same on the CPU.
+"""moai_tpu_torch on a CUDA card: the NTT kernels and the limb-arithmetic
+kernels against their plain versions, a small encrypted head against the
+float64 oracle, a small bootstrap against the same bootstrap on the CPU,
+serial loads onto the card against loads onto the CPU, and a small
+two-layer model resumed from its layer-0 checkpoint against the same on
+the CPU.
 
 This file imports neither JAX nor moai_tpu, so it runs on a GPU host
 without them (tests/conftest.py imports JAX, hence ``--noconftest``):
@@ -17,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from moai_tpu_torch import ntt_cuda, serial
+from moai_tpu_torch import limb_cuda, ntt_cuda, serial
+from moai_tpu_torch import mod_arith as ma
 from moai_tpu_torch.encoder import Encoder
 from moai_tpu_torch.encrypt import Encryptor
 from moai_tpu_torch.entry import build_bootstrap, build_head, build_model
@@ -53,6 +55,105 @@ def test_kernels_match_plain(card, logN, sl):
     assert ntt_cuda.launches["ntt_inv"] == n0["ntt_inv"] + 1
     assert torch.equal(back, intt_plain(fwd, tb, sl))
     assert torch.equal(back, x)
+
+
+def _residues(qs, lead, N, gen):
+    """Canonical residues [*lead, len(qs), N] on qs' device, with 0, 1 and
+    q - 1 in the first columns and q - 1 over the first row's rest."""
+    x = torch.randint(0, 1 << 62, lead + (len(qs), N), device=qs.device,
+                      generator=gen).remainder_(qs.reshape(-1, 1))
+    x[..., 0], x[..., 1] = 0, 1
+    x[..., 2] = qs - 1
+    x.reshape(-1, len(qs), N)[0, :, 3:] = qs.reshape(-1, 1) - 1
+    return x
+
+
+@pytest.mark.parametrize("logN", range(9, 17))
+def test_limb_kernels_match_plain(card, logN):
+    """Every limb kernel torch.equal to its plain version on the card: the
+    elementwise family on each broadcast pattern of its call sites (and on
+    operands past the residues' range), base_conv at the key-switch
+    decomposition of every level, the mod-down and ModRaise's conversion,
+    ks_mac with int64 and int32 keys, with and without the hoisted
+    permutation, and diag_mac; each kernel launched."""
+    ctx = Context(dataclasses.replace(_test_config(), logN=logN), device=card)
+    dv, L, K, N = ctx.dev, ctx.L, ctx.K, ctx.cfg.N
+    gen = torch.Generator(card).manual_seed(logN)
+
+    def res(qs, lead):
+        return _residues(qs, lead, N, gen)
+    before = dict(limb_cuda.launches)
+    q, rinv = dv["q"][:L].reshape(-1, 1), dv["rinv"][:L].reshape(-1, 1)
+    a, b = res(dv["q"][:L], (2, 2)), res(dv["q"][:L], (2, 2))
+    col = res(dv["q"][:L], (2, 1))[..., :1]    # [C, 1, L, 1]
+    qe, re_ = int(dv["q"][L - 1]), int(dv["rinv"][L - 1])
+    u = torch.randint(0, 1 << 30, (2, 1, N), device=card, generator=gen)
+    wide = torch.randint(-(1 << 62), 1 << 62, a.shape, device=card,
+                         generator=gen)
+    r2 = dv["r2"][:L].reshape(-1, 1)
+    pairs = [
+        (ma.add_mod(a, b, q), ma.add_mod_plain(a, b, q)),
+        (ma.sub_mod(a, b, q), ma.sub_mod_plain(a, b, q)),
+        (ma.neg_mod(a, q), ma.neg_mod_plain(a, q)),
+        (ma.mont_mul(a, b, q, rinv), ma.mont_mul_plain(a, b, q, rinv)),
+        (ma.mont_mul(a, b[0, :1], q, rinv),
+         ma.mont_mul_plain(a, b[0, :1], q, rinv)),
+        (ma.mont_mul(a, col, q, rinv), ma.mont_mul_plain(a, col, q, rinv)),
+        (ma.to_mont(u, q, rinv, r2), ma.mont_mul_plain(u, r2, q, rinv)),
+        (ma.from_mont(a, q, rinv), ma.from_mont_plain(a, q, rinv)),
+        (ma.sub_mont_mul(a[..., :L - 1, :], b[..., 1:, :], col[..., 1:, :],
+                         q[:L - 1], rinv[:L - 1]),
+         ma.sub_mont_mul_plain(a[..., :L - 1, :], b[..., 1:, :],
+                               col[..., 1:, :], q[:L - 1], rinv[:L - 1])),
+        (ma.add_mod(a[..., -1:, :], qe >> 1, qe),
+         ma.add_mod_plain(a[..., -1:, :], qe >> 1, qe)),
+        (ma.from_mont(a[..., -1:, :], qe, re_),
+         ma.from_mont_plain(a[..., -1:, :], qe, re_)),
+        (ma.sub_mod(wide, a, q), ma.sub_mod_plain(wide, a, q)),
+        (ma.mont_mul(wide, b, q, rinv), ma.mont_mul_plain(wide, b, q, rinv)),
+        (ma.from_mont(wide, q, rinv), ma.from_mont_plain(wide, q, rinv)),
+    ]
+    for i, (got, want) in enumerate(pairs):
+        assert torch.equal(got, want), i
+    qall = dv["q"]
+    for n_q in range(1, L + 1):
+        D = sum(1 for lo, _ in ctx.digit_ranges if lo < n_q)
+        qt = torch.cat([qall[:n_q], qall[L:]]).reshape(-1, 1)
+        rt = torch.cat([dv["rinv"][:n_q], dv["rinv"][L:]]).reshape(-1, 1)
+        hat = dv["ks_hat_mm"][n_q, :D]
+        hat_t = torch.cat([hat[..., :n_q], hat[..., L:]], dim=-1)
+        c = res(qall[:n_q], (2,))
+        args = (c, dv["ks_q_pad"], dv["ks_rinv_pad"],
+                dv["ks_hatinv_mont"][n_q, :D], hat_t, qt, rt)
+        assert torch.equal(ma.base_conv(*args), ma.base_conv_plain(*args))
+        y = res(qt.reshape(-1), (2, D))
+        for dtype in (torch.int64, torch.int32):
+            keys = [res(qall, (ctx.dnum, 2)).to(dtype)
+                    for _ in range(3)]
+            perm = torch.stack([torch.randperm(N, device=card,
+                                               generator=gen)
+                                for _ in keys])
+            for kw in ({"keys": keys[0]}, {"keys": keys, "perm": perm}):
+                for got, want in zip(
+                        ma.ks_mac(y, kw["keys"], L, qt, rt, kw.get("perm")),
+                        ma.ks_mac_plain(y, kw["keys"], L, qt, rt,
+                                        kw.get("perm"))):
+                    assert torch.equal(got, want), (n_q, dtype)
+    cp = res(qall[L:], (2, 2))
+    args = (cp, qall[L:], dv["rinv"][L:], dv["pdown_hatinv_mont"],
+            dv["pdown_hat_modq_mm"][None, :, :L - 1], q[:L - 1], rinv[:L - 1])
+    assert torch.equal(ma.base_conv(*args), ma.base_conv_plain(*args))
+    lam = res(qall[:2], (2, 2))
+    k = torch.randint(0, 3, (2, 2, N), device=card, generator=gen)
+    hat = res(qall[:L], (2,))[..., 0][None].contiguous()
+    args = (lam, None, None, None, hat, q, rinv, k, dv["r1"][:L])
+    assert torch.equal(ma.base_conv(*args), ma.base_conv_plain(*args))
+    cts = [res(qall[:L], (2, 2)) for _ in range(9)]
+    pts = res(qall[:L], (9,))
+    assert torch.equal(ma.diag_mac(cts, pts, q, rinv),
+                       ma.diag_mac_plain(cts, pts, q, rinv))
+    torch.cuda.synchronize()
+    assert all(limb_cuda.launches[k] > before[k] for k in before)
 
 
 def test_small_head_on_card(card):
