@@ -1,13 +1,19 @@
 """Smoke run of moai_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [bootstrap] [head] [model] [layer]
+    python3 chip_smoke.py [bootstrap] [head] [model] [layer] [kernels]
 
 With no argument it runs bootstrap, head and model, in this order; naming
 phases runs only those (``layer`` runs only when named: the model's layer
-0 is the same layer on the same input, and reports the same numbers).
+0 is the same layer on the same input, and reports the same numbers;
+``kernels``, only when named, times the limb kernels alone on the three
+chains, and with MOAI_LIMB_SOURCE naming another limb.cu builds them from
+that file, so two versions compare in one call).
 
 1. Builds the kernels (moai_tpu_torch/csrc/ntt.cu and csrc/limb.cu) with
-   nvcc for sm_90a, one nvcc per source, in parallel.
+   nvcc for sm_90a, one nvcc per source, in parallel; prints each
+   kernel's registers and spills and the SASS instruction mix of base_conv
+   and ks_mac (cuobjdump), and reads the card's maximum SM clock for the
+   integer bound.
 2. bootstrap: at N=2^16 on flagship_config (entry.build_bootstrap: 32768
    slots, L 74 = q0 pair + 20 data pairs + 16 boot pairs, K 13, dnum 6,
    Galois keys for every CoeffToSlot/SlotToCoeff step and the conjugation,
@@ -62,9 +68,16 @@ phases runs only those (``layer`` runs only when named: the model's layer
    decrypted output against the float64 oracle (gated) and against
    plain_bert_layer (reported).
 
+After each path's pass, base_conv and ks_mac are held torch.equal and
+timed again at the pass's commonest launch shape (limb_cuda.shapes), and
+ks_mac at its commonest hoisted shape through real Galois permutations
+("main" and "hoisted" in their rows).
+
 Prints a {"kernels": [...]} line, one row per kernel and path (diag_mac
 on the bootstrap only): each row's check and timings come from that
-path's context and its launches from that path's run, then the card's
+path's context and its launches from that path's run; base_conv's and
+ks_mac's bound is the larger of the byte and the integer bound
+(``bound_by``), the others' the byte bound; then the card's
 name and power limit, and as its last line {"ok": true, "device":
 {...}}.  Exits non-zero, printing no result,
 without a CUDA card or without the package beside it.
@@ -86,6 +99,21 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
+# The integer bound of base_conv and ks_mac: INT32 issue slots over the
+# card's INT32 rate, 64 lanes per SM per clock (NVIDIA H100 Tensor Core GPU
+# Architecture white paper) x the SMs x the card's maximum SM clock
+# (nvidia-smi clocks.max.sm, read at the start).  The slots each step
+# needs at least, as the kernels' SASS issues them (cuobjdump -sass, its
+# instruction mix printed at the start): a 32x32 -> 64-bit multiply-add is
+# one IMAD.WIDE.U32, two slots; base_conv's two-step reduction of a 64-bit
+# sum (two IMAD, two IMAD.WIDE.U32, a 64-bit add, the canonical subtract)
+# ten; one REDC of a group of products with its canonical add (ks_mac)
+# eight; the conversion of an input (a product and one REDC) seven.
+INT32_LANES_PER_SM = 64
+SLOTS_PER_PRODUCT = 2
+SLOTS_PER_REDC2 = 10
+SLOTS_PER_GROUP_REDC = 8
+SLOTS_PER_CONVERT = 7
 HEAD = dict(logN=15, n_data_levels=16, num_x=128, num_row=128, d_model=768,
             head_dim=64, exp_r=5, inv_iters=4, input_count=128)
 # Decrypted head output vs the float64 oracle, absolute, on outputs of
@@ -136,6 +164,21 @@ KERNELS = {
     "diag_mac": ("moai_tpu/boot/linear.py:59 (jnp multiply_plain + add_mod "
                  "sum of apply_diagonals)", LIMB_SRC),
 }
+# The commonest launch shapes of base_conv, ks_mac and hoisted ks_mac in
+# each path's pass (limb_cuda.conv_shape and mac_shape; from the default
+# run's "launch shapes" lines), which the kernels phase times without
+# running the paths.
+MAIN_SHAPES = {
+    "bootstrap": ((2, 13, 1, 13, 72, 65536, True, False),
+                  (1, 2, 6, 85, 65536, 87, 74, True, False),
+                  (2, 2, 6, 87, 65536, 87, 74, True, True)),
+    "head": ((64, 11, 1, 11, 4, 32768, True, False),
+             (1, 64, 1, 15, 32768, 45, 34, False, False),
+             (4, 11, 3, 43, 32768, 45, 34, False, True)),
+    "model": ((64, 10, 1, 10, 8, 32768, True, False),
+              (1, 64, 1, 18, 32768, 38, 28, False, False),
+              (4, 13, 3, 36, 32768, 38, 28, False, True)),
+}
 # The kernels each path must launch: diag_mac serves the bootstrap's linear
 # transforms only.
 PATH_KERNELS = {"bootstrap": list(KERNELS),
@@ -145,6 +188,7 @@ PATH_KERNELS = {"bootstrap": list(KERNELS),
 
 
 START = time.time()
+INT32_OPS_PER_S = [0.0]         # set in main from the card
 
 
 def log(*a):
@@ -157,6 +201,44 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def int32_ops_per_s() -> float:
+    """The card's INT32 rate: lanes per SM x SMs x the maximum SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_LANES_PER_SM * sms * mhz * 1e6
+
+
+def sass_mix(lib) -> dict:
+    """The instruction mix of each base_conv and ks_mac instantiation in
+    the built library (cuobjdump -sass): {function: {opcode: count}}, or
+    {} where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    mix, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            cur = None
+            for k in ("base_conv", "ks_mac"):
+                if k in name:
+                    cur = mix.setdefault(f"{k}<{name.split('ILi')[1].split('E')[0]}>"
+                                         if "ILi" in name else name, {})
+        elif cur is not None and "/*" in line and ";" in line:
+            ins = line.split("*/", 1)[1].split(";")[0].split()
+            if ins and ins[0].startswith("@"):
+                ins = ins[1:]
+            if ins:
+                cur[ins[0]] = cur.get(ins[0], 0) + 1
+    return mix
 
 
 def time_ms(fn, reps: int = 7) -> float:
@@ -205,6 +287,13 @@ def device_ms(fn, calls: int = 10) -> dict:
 def launch_counts() -> dict:
     from moai_tpu_torch import limb_cuda, ntt_cuda
     return {**ntt_cuda.launches, **limb_cuda.launches}
+
+
+def launch_shapes() -> dict:
+    """A copy of limb_cuda.shapes: base_conv's and ks_mac's launches by
+    launch shape since the counts were last set to 0."""
+    from moai_tpu_torch import limb_cuda
+    return {k: dict(v) for k, v in limb_cuda.shapes.items()}
 
 
 def reset_launches() -> None:
@@ -273,10 +362,13 @@ def check_kernels(ctx, path: str) -> dict:
     return res
 
 
-def measure(name: str, pairs, kern, plain, nbytes: int, shape) -> dict:
+def measure(name: str, pairs, kern, plain, nbytes: int, shape,
+            slots: int | None = None) -> dict:
     """Hold each (kernel call, plain call) of ``pairs`` torch.equal (every
     tensor of a tuple result), then time ``kern`` and ``plain`` as
-    check_kernels times the NTT, beside the byte bound."""
+    check_kernels times the NTT, beside the bound: the larger of the byte
+    bound and, given the INT32 issue slots the call needs at least, the
+    integer bound."""
     err = 0
     for i, (got_fn, want_fn) in enumerate(pairs):
         got, want = got_fn(), want_fn()
@@ -293,12 +385,128 @@ def measure(name: str, pairs, kern, plain, nbytes: int, shape) -> dict:
     ms = time_ms(kern)
     dev = device_ms(kern)
     plain_ms = time_ms(plain, reps=3)
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = None if slots is None else slots / INT32_OPS_PER_S[0] * 1e3
+    bound, bound_by = (by_bytes, "bytes") if by_ops is None \
+        or by_ops <= by_bytes else (by_ops, "operations")
     log(f"{name}: equal to plain in {len(pairs)} cases; {shape}: kernel "
         f"{ms:.4f} ms, device {json.dumps(dev)}, plain {plain_ms:.4f} ms, "
-        f"memory bound {bound:.4f} ms")
+        f"byte bound {by_bytes:.5f} ms, integer bound "
+        f"{'-' if by_ops is None else f'{by_ops:.5f}'} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                shape=list(shape), device_ms=dev)
+                bound_by=bound_by, bound_bytes_ms=by_bytes,
+                bound_ops_ms=by_ops, shape=list(shape), device_ms=dev)
+
+
+def galois_perms(N: int, steps, device) -> torch.Tensor:
+    """NTT-domain permutations of the slot rotations by ``steps``, as the
+    Galois keys hold them (keys.KeyGenerator.galois_perm of 5^s mod 2N)."""
+    k = torch.arange(N, device=device)
+    return torch.stack([((pow(5, s, 2 * N) * (2 * k + 1)) % (2 * N) - 1) // 2
+                        for s in steps])
+
+
+def conv_cost(shape) -> tuple:
+    """base_conv's bytes (each input read once, each output written once),
+    shape and least INT32 issue slots, from its launch shape
+    (limb_cuda.conv_shape): products, one two-step reduction per sum of
+    up to 16 products, the input conversions, ModRaise's k term."""
+    B, S, D, A, T, N, hatinv, k = shape
+    cnts = [min(A, S - d * A) for d in range(D)]
+    slots = B * N * T * (SLOTS_PER_PRODUCT * sum(cnts) + SLOTS_PER_REDC2
+                         * sum(-(-c // 16) for c in cnts))
+    slots += SLOTS_PER_CONVERT * B * S * N if hatinv else 0
+    slots += SLOTS_PER_GROUP_REDC * B * D * T * N if k else 0
+    return 8 * B * N * (S + D * T + (1 if k else 0)), shape, slots
+
+
+def mac_cost(shape) -> tuple:
+    """ks_mac's bytes, shape and least INT32 issue slots from its launch
+    shape (limb_cuda.mac_shape): each output a sum of D products, REDC'd
+    in groups of four."""
+    R, B, D, T, N, KL, q_limbs, key32, with_perm = shape
+    outs = 2 * R * B * T * N
+    nbytes = (8 * B * D * T * N + (4 if key32 else 8) * R * D * 2 * T * N
+              + 8 * outs + (8 * R * N if with_perm else 0))
+    return nbytes, shape, outs * (SLOTS_PER_PRODUCT * D
+                                  + SLOTS_PER_GROUP_REDC * -(-D // 4))
+
+
+def conv_inputs(ctx, shape):
+    """Uniform inputs of base_conv's launch shape on the card, over this
+    context's primes: (kernel call, plain call)."""
+    from moai_tpu_torch import mod_arith as ma
+    B, S, D, A, T, N, with_hatinv, with_k = shape
+    dv = ctx.dev
+    primes, rinv = dv["q"], dv["rinv"]
+    pad = torch.arange(D * A, device=primes.device) % S
+    tq, rt = primes[:T].reshape(-1, 1), rinv[:T].reshape(-1, 1)
+    x = random_residues(primes[:S], (B,), N)
+    hat = random_residues(tq.reshape(-1), (D, A), 1)[..., 0]
+    if with_hatinv:
+        src = (primes[pad], rinv[pad],
+               random_residues(primes[pad], (), 1)[..., 0])
+    else:
+        src = (None, None, None)
+    k = kq = None
+    if with_k:
+        k = torch.randint(0, A + 1, (B, N), device=x.device)
+        kq = random_residues(tq.reshape(-1), (), 1)[..., 0]
+    args = (x, *src, hat, tq, rt, k, kq)
+    return lambda: ma.base_conv(*args), lambda: ma.base_conv_plain(*args)
+
+
+def mac_inputs(ctx, shape):
+    """Uniform inputs of ks_mac's launch shape on the card, over this
+    context's primes, with the Galois permutations of the rotations by
+    1..R where the launch had a permutation: (kernel call, plain call)."""
+    from moai_tpu_torch import mod_arith as ma
+    R, B, D, T, N, KL, q_limbs, key32, with_perm = shape
+    dv, L = ctx.dev, ctx.L
+    limbs = torch.cat([dv["q"][:q_limbs], dv["q"][L:L + KL - q_limbs]])
+    lrinv = torch.cat([dv["rinv"][:q_limbs], dv["rinv"][L:L + KL - q_limbs]])
+    n_q = T - (KL - q_limbs)
+    tq = torch.cat([limbs[:n_q], limbs[q_limbs:]]).reshape(-1, 1)
+    rt = torch.cat([lrinv[:n_q], lrinv[q_limbs:]]).reshape(-1, 1)
+    y = random_residues(tq.reshape(-1), (B, D), N)
+    dt = torch.int32 if key32 else torch.int64
+    keys = [random_residues(limbs, (D, 2), N).to(dt) for _ in range(R)]
+    if not with_perm:
+        return (lambda: ma.ks_mac(y, keys[0], q_limbs, tq, rt),
+                lambda: ma.ks_mac_plain(y, keys[0], q_limbs, tq, rt))
+    perm = galois_perms(N, range(1, R + 1), y.device)
+    return (lambda: ma.ks_mac(y, keys, q_limbs, tq, rt, perm),
+            lambda: ma.ks_mac_plain(y, keys, q_limbs, tq, rt, perm))
+
+
+def time_main_shapes(ctx, kern: dict, shapes: dict) -> None:
+    """base_conv and ks_mac at the commonest launch shape of the path's
+    pass (``shapes``: limb_cuda.shapes just after it), and ks_mac at the
+    commonest shape of its hoisted launches (through real Galois
+    permutations), each held torch.equal to its plain version and timed
+    as check_limb_kernels times them; recorded under "main" and
+    "hoisted"."""
+    for name, key, pick, build, cost in (
+            ("base_conv", "main", None, conv_inputs, conv_cost),
+            ("ks_mac", "main", None, mac_inputs, mac_cost),
+            ("ks_mac", "hoisted", lambda s: s[-1], mac_inputs, mac_cost)):
+        counts = {s: n for s, n in shapes[name].items()
+                  if pick is None or pick(s)}
+        if not counts:
+            continue
+        top = sorted(counts.items(), key=lambda kv: -kv[1])
+        log(f"{name} launch shapes{' (hoisted)' if pick else ''}: "
+            f"{len(counts)} distinct, {sum(counts.values())} launches; the "
+            f"commonest {[[list(s), n] for s, n in top[:5]]}")
+        shape, n = top[0]
+        kern_fn, plain_fn = build(ctx, shape)
+        m = measure(f"{name} at the pass's commonest {key} shape",
+                    [(kern_fn, plain_fn)], kern_fn, plain_fn, *cost(shape))
+        kern[name][key] = dict(m, launches_at_shape=n,
+                               distinct_shapes=len(counts))
+        del kern_fn, plain_fn
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def check_limb_kernels(ctx, path: str) -> dict:
@@ -310,6 +518,7 @@ def check_limb_kernels(ctx, path: str) -> dict:
     dtype (int32 on the bootstrap) and of the other, with and without the
     hoisted permutation, and (bootstrap) a giant step of 8 diagonals, the
     most lt_group 5 gives.  Each timed at its main case."""
+    from moai_tpu_torch import limb_cuda
     from moai_tpu_torch import mod_arith as ma
     dv, L, K, N = ctx.dev, ctx.L, ctx.K, ctx.cfg.N
     boot = path == "bootstrap"
@@ -360,19 +569,19 @@ def check_limb_kernels(ctx, path: str) -> dict:
     cp = random_residues(qall[L:], (B, 2), N)
     moddown = (cp, qall[L:], dv["rinv"][L:], dv["pdown_hatinv_mont"],
                dv["pdown_hat_modq_mm"][None, :, :L], q, rinv)
-    T = L + K
+    cases = (top, mid, moddown, modraise)
     res["base_conv"] = measure("base_conv", [
         (lambda c=c: ma.base_conv(*c), lambda c=c: ma.base_conv_plain(*c))
-        for c in (top, mid, moddown, modraise)],
+        for c in cases],
         lambda: ma.base_conv(*top), lambda: ma.base_conv_plain(*top),
-        8 * B * N * (L + D * T), (B, L, N))
-    del mid, modraise, moddown, cp, lam
+        *conv_cost(limb_cuda.conv_shape(top[0], top[4], top[3], None)))
+    del mid, modraise, moddown, cp, lam, cases
 
     y = random_residues(qt.reshape(-1), (B, D), N)
     main_dtype = torch.int32 if boot else torch.int64
     keys = {dt: [random_residues(qall, (ctx.dnum, 2), N).to(dt)
                  for _ in range(3)] for dt in (torch.int32, torch.int64)}
-    perm = torch.stack([torch.randperm(N, device=a.device) for _ in range(3)])
+    perm = galois_perms(N, (1, 2, 3), a.device)
     cases = []
     for dt, ks in keys.items():
         cases.append((lambda ks=ks: ma.ks_mac(y, ks[0], L, qt, rt),
@@ -383,8 +592,7 @@ def check_limb_kernels(ctx, path: str) -> dict:
     res["ks_mac"] = measure(
         "ks_mac", cases, lambda: ma.ks_mac(y, key, L, qt, rt),
         lambda: ma.ks_mac_plain(y, key, L, qt, rt),
-        8 * B * D * T * N + key.element_size() * D * 2 * T * N
-        + 8 * 2 * B * T * N, (B, D, T, N))
+        *mac_cost(limb_cuda.mac_shape(y, [key], L, None)))
     del y, keys, cases, key
     if boot:
         cts = [random_residues(qall[:L], (B, 2), N) for _ in range(8)]
@@ -422,7 +630,8 @@ def profile_summary(prof, wall: float) -> dict:
             "ntt": [{"s": s, "calls": n, "name": kernel_name(k)}
                     for s, n, k in rows if "ntt_" in k],
             "limb": [{"s": s, "calls": n, "name": kernel_name(k)}
-                     for s, n, k in rows if kernel_name(k) in KERNELS]}
+                     for s, n, k in rows
+                     if kernel_name(k).split("<")[0] in KERNELS]}
 
 
 def profile_pass(fn):
@@ -509,6 +718,7 @@ def run_bootstrap() -> dict:
     bt.on_stage = None
     secs = prof["wall_s"]
     launches = launch_counts()
+    shapes = launch_shapes()
     peak = torch.cuda.max_memory_allocated()
     peak_reserved = torch.cuda.max_memory_reserved()
     log(f"bootstrap: {secs:.2f} s per pass of {BOOT_BATCH} ciphertexts, "
@@ -520,6 +730,7 @@ def run_bootstrap() -> dict:
         f"reserved; output n_q={out.n_q}; launches {launches}")
     log("bootstrap profile:", json.dumps(prof))
     require_launches("bootstrap", launches, kern)
+    time_main_shapes(ctx, kern, shapes)
     if out.n_q != ctx.L - 2 * bt.levels or out.n_q != boot.n_out:
         raise SystemExit(f"bootstrap output at {out.n_q} limbs, not "
                          f"{ctx.L - 2 * bt.levels}")
@@ -577,11 +788,13 @@ def run_head() -> dict:
     torch.cuda.synchronize()
     secs = time.time() - t0
     launches = launch_counts()
+    shapes = launch_shapes()
     peak = torch.cuda.max_memory_allocated()
     log(f"head: {secs:.2f} s, {secs / HEAD['input_count']:.4f} s per input, "
         f"peak {peak / 2**30:.2f} GiB, output n_q={out.n_q}, "
         f"launches {launches}")
     require_launches("head", launches, kern)
+    time_main_shapes(head.ctx, kern, shapes)
 
     got = head.decode(out)
     want = head.oracle()
@@ -641,6 +854,7 @@ def run_layer() -> dict:
     out, prof = profile_pass(lambda: layer.fn(layer.x_data))
     secs = prof["wall_s"]
     launches = launch_counts()
+    shapes = launch_shapes()
     peak = torch.cuda.max_memory_allocated()
     peak_reserved = torch.cuda.max_memory_reserved()
     refresh_s = sum(r[3] for r in layer.refresh_log)
@@ -653,6 +867,7 @@ def run_layer() -> dict:
         f"n_q={out.n_q}; launches {launches}; by stage (s): "
         f"{json.dumps(stages)}")
     require_launches("layer", launches, kern)
+    time_main_shapes(layer.ctx, kern, shapes)
 
     got = layer.decode(out)
     del out
@@ -800,6 +1015,7 @@ def run_model() -> dict:
         ev.debug = None
     secs = time.perf_counter() - t1
     total = launch_counts()
+    shapes = launch_shapes()
     launches = {k: total[k] - check_launches[k] for k in KERNELS}
     log(f"model: {MODEL_LAYERS} layers and their checks in {secs:.2f} s; "
         f"output n_q={out.n_q}; launches in the layers {launches}, in the "
@@ -810,28 +1026,64 @@ def run_model() -> dict:
     if out.n_q != first.n_att:
         raise SystemExit(f"model output at {out.n_q} limbs, not "
                          f"{first.n_att}")
+    del out
+    time_main_shapes(model.ctx, kern, shapes)
     return kern
+
+
+def run_kernels() -> None:
+    """The limb kernels alone (only when named): each path's context on the
+    card (flagship_config, the head's head_config(15, 16), the model's
+    head_config(15, 13)), the limb kernels held torch.equal to their plain
+    versions and timed at that path's checked shapes, as each phase does,
+    and base_conv and ks_mac at its MAIN_SHAPES; the log lines carry the
+    numbers.  With MOAI_LIMB_SOURCE naming another
+    limb.cu, the kernels are built from it, so two versions can be timed
+    in one call."""
+    from moai_tpu_torch.params import Context, flagship_config, head_config
+    for path, cfg in (("bootstrap", flagship_config()),
+                      ("head", head_config(15, 16)),
+                      ("model", head_config(15, 13))):
+        log(f"kernels at the {path}'s chain")
+        ctx = Context(cfg, device="cuda")
+        kern = check_limb_kernels(ctx, path)
+        conv, mac, hoisted = MAIN_SHAPES[path]
+        time_main_shapes(ctx, kern, {"base_conv": {conv: 1},
+                                     "ks_mac": {mac: 1, hoisted: 0}})
+        del ctx, kern
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from pathlib import Path
     from moai_tpu_torch import cuda_build
+    if os.environ.get("MOAI_LIMB_SOURCE"):
+        cuda_build.SOURCES["limb"] = Path(os.environ["MOAI_LIMB_SOURCE"])
+        log(f"limb kernels from {cuda_build.SOURCES['limb']}")
 
     t0 = time.time()
     for lib, msgs in cuda_build.build().values():
         log(f"built {lib.name} ({time.time() - t0:.1f} s since the start of "
             f"the builds, which run in parallel)")
         for line in msgs.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "smem",
+                                       "spill")):
                 log("  nvcc:", line.strip())
+        for fn, mix in sass_mix(lib).items():
+            log(f"  SASS {fn}: {sum(mix.values())} instructions, "
+                f"{json.dumps(dict(sorted(mix.items(), key=lambda kv: -kv[1])))}")
     name_power = card()
+    INT32_OPS_PER_S[0] = int32_ops_per_s()
     log(f"card: {name_power}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda}; INT32 rate {INT32_OPS_PER_S[0]:.4e} lanes/s "
+        f"({INT32_LANES_PER_SM} lanes per SM, the maximum SM clock)")
 
     phases = {"bootstrap": run_bootstrap, "head": run_head,
-              "model": run_model, "layer": run_layer}
+              "model": run_model, "layer": run_layer, "kernels": run_kernels}
     chosen = sys.argv[1:] or ["bootstrap", "head", "model"]
     unknown = set(chosen) - set(phases)
     if unknown:
@@ -840,7 +1092,9 @@ def main() -> int:
         return 2
     paths = {}
     for name in chosen:
-        paths[name] = phases[name]()
+        kern = phases[name]()
+        if kern is not None:
+            paths[name] = kern
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -849,8 +1103,10 @@ def main() -> int:
          "replaces": KERNELS[k][0], "launches": m[k]["launches"],
          "max_abs_err": m[k]["max_abs_err"], "ms": m[k]["ms"],
          "plain_ms": m[k]["plain_ms"], "bound_ms": m[k]["bound_ms"],
-         "bound_by": "bytes", "library_ms": None, "path": path,
-         "shape": m[k]["shape"], "device_ms": m[k]["device_ms"]}
+         "bound_by": m[k].get("bound_by", "bytes"), "library_ms": None,
+         "path": path, "shape": m[k]["shape"], "device_ms": m[k]["device_ms"],
+         **{x: m[k][x] for x in ("bound_bytes_ms", "bound_ops_ms", "main",
+                                 "hoisted") if x in m[k]}}
         for path, m in paths.items() for k in PATH_KERNELS[path]]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -24,28 +24,31 @@
 //
 // Bound: memory.  Each int64 input is read once and each output written
 // once at 3.35 TB/s; the arithmetic is a few 32- and 64-bit integer
-// multiplies per element, far below the card's integer rate.  What the
-// design does about it:
+// multiplies per element, below the card's integer rate (base_conv, with
+// up to 13 products per output, comes closest).  What the design does
+// about it:
 // - Reduction is Montgomery's REDC with R = 2^32 (one 32x32 low multiply,
 //   one 32x32 -> 64 multiply-add, a shift), with no division on any
 //   residue in range; -q^-1 mod 2^32 comes from four Newton steps on q, so
 //   no table of it is read.  The elementwise ops take any int64 input, as
 //   the torch ops do: operands past the residues' range (never on the
 //   scheme's paths) take a branch with the int64 remainder.
-// - The MACs add up to four products of residues in 64 bits (each below
-//   2^30 * q, four below q * 2^32, REDC's input range) before one REDC,
-//   and keep a canonical 32-bit sum across groups.
-// - base_conv reads each input limb once per output tile: a thread keeps
-//   its coefficient's alpha (or K) converted inputs in registers and walks
-//   every target limb; the table hat[a][t] sits in shared memory.
-// - ks_mac reads each digit of y once for both key rows, reads the key
-//   where it lies (no copy of the active limbs), and gathers y through a
+// - ks_mac and diag_mac add up to four products of residues in 64 bits
+//   (each below 2^30 * q, four below q * 2^32, REDC's input range) before
+//   one REDC, and keep a canonical 32-bit sum across groups.
+// - base_conv is a modular GEMM per (b, d) with register tiles of 4
+//   targets x 2 coefficients: one shared load of hat feeds eight
+//   multiply-adds, the sums stay lazy over up to 16 products in 64 bits,
+//   and two REDC steps against hat * 2^32 reduce each sum once.
+// - ks_mac reads each key element once per launch (a thread holds its
+//   coefficient's key values and walks the rows of y), reads the key where
+//   it lies (no copy of the active limbs), and gathers y through a
 //   rotation's permutation instead of materialising the rotated digits.
 // - diag_mac keeps a coefficient's diagonals in registers and walks the
 //   ciphertexts' rows, so each diagonal and each rotated ciphertext is read
 //   once per giant step.
-// - Loads are coalesced 8-byte loads, consecutive threads on consecutive
-//   coefficients; each elementwise thread keeps four loads in flight.
+// - Loads are coalesced, consecutive threads on consecutive coefficients;
+//   each elementwise thread keeps four loads in flight.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,6 +62,7 @@ typedef long long i64;
 constexpr int kMaxDims = 6;
 constexpr int kOperands = 4;   // a, b, c, q
 constexpr int kMaxIn = 32;     // input limbs of one base_conv digit
+constexpr int kMaxDigits = 16; // digits of one ks_mac launch
 constexpr int kMaxRot = 64;    // rotations of one ks_mac launch
 constexpr int kMaxTerms = 32;  // diagonals of one diag_mac launch
 
@@ -255,69 +259,162 @@ __global__ void __launch_bounds__(kEwThreads) limb_ew(const __grid_constant__ Ew
 // base_conv: out[b, d, t] = sum_a lam[b, d*A + a] * hat[d, a, t] * 2^-32
 //            (- k[b] * kq[t] * 2^-32)  mod tq[t]
 // lam = from_mont(mont_mul(x, hatinv)) mod src_q, or x itself (no hatinv).
+//
+// For each (b, d) this is a modular GEMM, out[T, n] = hat[d]^T [T, cnt] .
+// lam [cnt, n].  A block takes one (b, d) row and kConvCoeffs coefficients;
+// each thread owns two neighbouring coefficients, converts their cnt inputs
+// once into registers, and walks the targets in register tiles of
+// kConvTile targets x 2 coefficients: one 16-byte shared load of hat feeds
+// eight independent 64-bit multiply-adds.  The sums are lazy: up to kLazy
+// products below 2^60 each stay below 2^64, and each group is reduced
+// once by two REDC steps (S * 2^-64, in [0, q]) against hat * 2^32 mod q,
+// which the block computes once per digit into shared memory.  An input
+// becomes lam by one REDC against hatinv * 2^-32, also computed once per
+// block.  Outputs go out as one 16-byte store per target and thread.
 // ---------------------------------------------------------------------------
 
-constexpr int kConvThreads = 256;
+constexpr int kConvThreads = 128;
+constexpr int kConvCoeffs = 2 * kConvThreads;   // coefficients of one block
+constexpr int kConvTile = 4;                    // targets of a register tile
+constexpr int kLazy = 16;                       // products of one 64-bit sum
 
+// S * 2^-64 mod q, canonical, for any S < 2^64 and odd q < 2^31: two REDC
+// steps, the first on the full 64-bit S (S1 = S >> 32 + (lo + m q) >> 32
+// <= 2^32 - 1 + q), the second on S1 (S1 + m q < 2^32 (q + 1), so the
+// result is at most q).
+__device__ __forceinline__ uint32_t redc2_canon(u64 S, uint32_t q, uint32_t qn) {
+  const uint32_t m1 = (uint32_t)S * qn;
+  const u64 s1 = (S >> 32) + (((u64)m1 * q + (uint32_t)S) >> 32);
+  const uint32_t m2 = (uint32_t)s1 * qn;
+  const uint32_t s2 = (uint32_t)((s1 + (u64)m2 * q) >> 32);
+  return s2 >= q ? s2 - q : s2;
+}
 
-__global__ void __launch_bounds__(kConvThreads) base_conv(const __grid_constant__ BaseConvArgs a) {
+// lam = from_mont(mont_mul(v, hatinv)) mod q, as the torch ops compute it.
+// Where their int64 product is exact (v < 2^32, hatinv < 2^31: c.w) this
+// is one REDC of v * (hatinv * 2^-32 mod q) (c.z), below 2q; other
+// operands take the elementwise ops' general path.
+__device__ __forceinline__ uint32_t to_lam(i64 v, uint4 c, const i64* hatinv) {
+  if (c.w && (u64)v < (1ull << 32)) return redc_canon((u64)v * c.z, c.x, c.y);
+  return (uint32_t)from_mont(mont_mul(v, *hatinv, c.x, c.y), c.x, c.y);
+}
+
+// Up to MAXC inputs a digit (a compile-time bound, so lam stays in
+// registers); cnt <= MAXC at run time.  Six blocks an SM (80 registers
+// for MAXC 16) ran faster on the H100 than four at 90 registers.
+template <int MAXC>
+__global__ void __launch_bounds__(kConvThreads, 6) base_conv(const __grid_constant__ BaseConvArgs a) {
   extern __shared__ uint32_t sm[];
-  uint32_t* s_q = sm;
-  uint32_t* s_qn = s_q + a.T;
-  uint32_t* s_kq = s_qn + a.T;
-  uint32_t* s_hat = s_kq + a.T;   // [A][T]
-  const int n = blockIdx.x * kConvThreads + threadIdx.x;
+  const int Tp = (a.T + kConvTile - 1) / kConvTile * kConvTile;
+  uint32_t* s_q = sm;                 // [Tp], 1 past T
+  uint32_t* s_qn = s_q + Tp;
+  uint32_t* s_r2 = s_qn + Tp;         // 2^64 mod q
+  uint32_t* s_kq = s_r2 + Tp;
+  uint32_t* s_hat = s_kq + Tp;        // [cnt][Tp]: hat * 2^32 mod q, 0 past T
+  uint4* s_src = (uint4*)(s_hat + a.A * Tp);   // [cnt]: q, -q^-1, hatinv
+                                               // * 2^-32, lean path ok
+  for (int t = threadIdx.x; t < Tp; t += kConvThreads) {
+    const uint32_t q = t < a.T ? (uint32_t)a.tq[t * a.tqs] : 1u;
+    const uint32_t r1 = (0u - q) % q;                 // 2^32 mod q
+    s_q[t] = q;
+    s_qn[t] = neg_qinv(q);
+    s_r2[t] = (uint32_t)((u64)r1 * r1 % q);
+    s_kq[t] = a.k && t < a.T ? (uint32_t)a.kq[t * a.kqs] : 0u;
+  }
+  const int n = (blockIdx.x * kConvThreads + threadIdx.x) * 2;   // N is even
   for (i64 bd = blockIdx.y; bd < a.B * a.D; bd += gridDim.y) {
     const int d = (int)(bd % a.D);
     const i64 b = bd / a.D;
     const int lo = d * a.A;
     const int cnt = min(a.A, a.S - lo);
-    __syncthreads();              // the previous row's readers are done
-    for (int i = threadIdx.x; i < a.T; i += kConvThreads) {
-      const uint32_t q = (uint32_t)a.tq[i * a.tqs];
-      s_q[i] = q;
-      s_qn[i] = neg_qinv(q);
-      s_kq[i] = a.k ? (uint32_t)a.kq[i * a.kqs] : 0u;
+    __syncthreads();                  // the tables are written, the previous
+                                      // row's readers of s_hat are done
+#pragma unroll 4
+    for (int i = threadIdx.x; i < cnt * Tp; i += kConvThreads) {
+      const int ai = i / Tp, t = i - ai * Tp;
+      uint32_t h = 0;
+      if (t < a.T) {                  // hat < 2^32, r2 < q: below 2q
+        const uint32_t q = s_q[t];
+        h = redc_canon((u64)(uint32_t)a.hat[d * a.hs0 + ai * a.hs1 + t * a.hs2] * s_r2[t],
+                       q, s_qn[t]);
+      }
+      s_hat[i] = h;
     }
-    for (int i = threadIdx.x; i < cnt * a.T; i += kConvThreads) {
-      const int ai = i / a.T, t = i - ai * a.T;
-      s_hat[i] = (uint32_t)a.hat[d * a.hs0 + ai * a.hs1 + t * a.hs2];
+    if (a.hatinv) {
+      for (int i = threadIdx.x; i < cnt; i += kConvThreads) {
+        const uint32_t q = (uint32_t)a.src_q[lo + i], qn = neg_qinv(q);
+        const i64 hi = a.hatinv[lo + i];
+        s_src[i] = make_uint4(q, qn, (uint32_t)from_mont(hi, q, qn), (u64)hi < (1ull << 31));
+      }
     }
     __syncthreads();
     if (n >= a.N) continue;
-    uint32_t lam[kMaxIn];
+    uint32_t lam[MAXC][2];
+    const i64* xrow = a.x + (b * a.S + lo) * a.N + n;
 #pragma unroll
-    for (int i = 0; i < kMaxIn; ++i) {
+    for (int i = 0; i < MAXC; ++i) {
       if (i < cnt) {
-        const i64 v = a.x[(b * a.S + lo + i) * a.N + n];
+        const longlong2 v = *(const longlong2*)(xrow + (i64)i * a.N);
         if (a.hatinv) {
-          const uint32_t qi = (uint32_t)a.src_q[lo + i], qni = neg_qinv(qi);
-          lam[i] = (uint32_t)from_mont(mont_mul(v, a.hatinv[lo + i], qi, qni), qi, qni);
+          const uint4 c = s_src[i];
+          lam[i][0] = to_lam(v.x, c, a.hatinv + lo + i);
+          lam[i][1] = to_lam(v.y, c, a.hatinv + lo + i);
         } else {
-          lam[i] = (uint32_t)v;
+          lam[i][0] = (uint32_t)v.x;
+          lam[i][1] = (uint32_t)v.y;
         }
       }
     }
-    const i64 kv = a.k ? a.k[b * a.N + n] : 0;
+    longlong2 kv = make_longlong2(0, 0);
+    if (a.k) kv = *(const longlong2*)(a.k + b * a.N + n);
     i64* out = a.out + (bd * a.T) * a.N + n;
-    for (int t = 0; t < a.T; ++t) {
-      const uint32_t q = s_q[t], qn = s_qn[t];
-      uint32_t acc = 0;
+    for (int t0 = 0; t0 < a.T; t0 += kConvTile) {
+      const uint4 q4 = *(const uint4*)(s_q + t0);
+      const uint4 qn4 = *(const uint4*)(s_qn + t0);
+      const uint32_t qs[kConvTile] = {q4.x, q4.y, q4.z, q4.w};
+      const uint32_t qns[kConvTile] = {qn4.x, qn4.y, qn4.z, qn4.w};
+      uint32_t res[kConvTile][2];
 #pragma unroll
-      for (int i = 0; i < kMaxIn; i += 4) {
-        if (i < cnt) {
-          u64 T = 0;
+      for (int g0 = 0; g0 < MAXC; g0 += kLazy) {
+        if (g0 < cnt) {
+          u64 S[kConvTile][2] = {};
 #pragma unroll
-          for (int j = i; j < i + 4; ++j)
-            if (j < cnt) T += (u64)lam[j] * s_hat[j * a.T + t];
-          acc = add_canon(acc, redc_canon(T, q, qn), q);
+          for (int i = g0; i < g0 + kLazy && i < MAXC; ++i) {
+            if (i < cnt) {
+              const uint4 h4 = *(const uint4*)(s_hat + i * Tp + t0);
+              const uint32_t h[kConvTile] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+              for (int j = 0; j < kConvTile; ++j) {
+                S[j][0] += (u64)lam[i][0] * h[j];
+                S[j][1] += (u64)lam[i][1] * h[j];
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kConvTile; ++j) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const uint32_t r = redc2_canon(S[j][c], qs[j], qns[j]);
+              res[j][c] = g0 == 0 ? r : add_canon(res[j][c], r, qs[j]);
+            }
+          }
         }
       }
-      if (a.k) {
-        const uint32_t kt = (uint32_t)mont_mul(kv, s_kq[t], q, qn);
-        acc = acc >= kt ? acc - kt : acc + (q - kt);
+#pragma unroll
+      for (int j = 0; j < kConvTile; ++j) {
+        const int t = t0 + j;
+        if (t < a.T) {
+          uint32_t r0 = res[j][0], r1 = res[j][1];
+          if (a.k) {
+            const uint32_t q = qs[j], kq = s_kq[t];
+            const uint32_t k0 = (uint32_t)mont_mul(kv.x, kq, q, qns[j]);
+            const uint32_t k1 = (uint32_t)mont_mul(kv.y, kq, q, qns[j]);
+            r0 = r0 >= k0 ? r0 - k0 : r0 + (q - k0);
+            r1 = r1 >= k1 ? r1 - k1 : r1 + (q - k1);
+          }
+          *(longlong2*)(out + (i64)t * a.N) = make_longlong2(r0, r1);
+        }
       }
-      out[(i64)t * a.N] = acc;
     }
   }
 }
@@ -326,47 +423,88 @@ __global__ void __launch_bounds__(kConvThreads) base_conv(const __grid_constant_
 // ks_mac: out[p, r, b, t, n] = sum_d y[b, d, t, src] * key_r[d, p, kl(t), n]
 //         * 2^-32 mod tq[t], src = perm[r, n] (or n), kl(t) = t < split ? t
 //         : t + kgap, for both key rows p
+//
+// A thread takes one (r, t, n): it loads the 2 D key values of its
+// coefficient and perm[r, n] once, then walks the B rows of y, loading the
+// next row's D digits before this row's arithmetic.  So each key element
+// is read once per launch, whatever B is.  The grid's rows run over (t, r),
+// r fastest, so the rotations of one target limb read its rows of y while
+// they sit in L2.
 // ---------------------------------------------------------------------------
 
 constexpr int kMacThreads = 256;
 
 
-__device__ __forceinline__ i64 load_key(const void* p, int is32, i64 off) {
-  return is32 ? (i64)((const int*)p)[off] : ((const i64*)p)[off];
+__device__ __forceinline__ uint32_t load_key(const void* p, int is32, i64 off) {
+  return is32 ? (uint32_t)((const int*)p)[off] : (uint32_t)((const i64*)p)[off];
 }
 
-__global__ void __launch_bounds__(kMacThreads) ks_mac(const __grid_constant__ KsMacArgs a) {
-  const int n = blockIdx.x * kMacThreads + threadIdx.x;
-  if (n >= a.N) return;
-  const i64 plane = (i64)a.KL * a.N;
-  for (i64 row = blockIdx.y; row < (i64)a.R * a.B * a.T; row += gridDim.y) {
-    const int t = (int)(row % a.T);
-    const i64 rb = row / a.T;
-    const int r = (int)(rb / a.B);
-    const i64 b = rb - (i64)r * a.B;
-    const uint32_t q = (uint32_t)a.tq[t * a.tqs], qn = neg_qinv(q);
-    const int src = a.perm ? (int)a.perm[(i64)r * a.N + n] : n;
-    const int kl = t < a.split ? t : t + a.kgap;
-    const void* key = a.key[r];
-    const i64* yrow = a.y + (b * a.D * a.T + t) * a.N + src;
-    const i64 koff = (i64)kl * a.N + n;
-    uint32_t acc0 = 0, acc1 = 0;
-    for (int d0 = 0; d0 < a.D; d0 += 4) {
+// The canonical sums of both key rows' products, REDC'd in groups of four.
+template <int MAXD>
+__device__ __forceinline__ void mac_row(const uint32_t (&yv)[MAXD], const uint32_t (&k0)[MAXD],
+                                        const uint32_t (&k1)[MAXD], int D, uint32_t q,
+                                        uint32_t qn, uint32_t& acc0, uint32_t& acc1) {
+  acc0 = acc1 = 0;
+#pragma unroll
+  for (int d0 = 0; d0 < MAXD; d0 += 4) {
+    if (d0 < D) {
       u64 T0 = 0, T1 = 0;
 #pragma unroll
-      for (int d = d0; d < d0 + 4; ++d) {
-        if (d < a.D) {
-          const u64 yv = (u64)yrow[(i64)d * a.T * a.N];
-          T0 += yv * (u64)load_key(key, a.key32, (2 * d) * plane + koff);
-          T1 += yv * (u64)load_key(key, a.key32, (2 * d + 1) * plane + koff);
+      for (int d = d0; d < d0 + 4 && d < MAXD; ++d) {
+        if (d < D) {
+          T0 += (u64)yv[d] * k0[d];
+          T1 += (u64)yv[d] * k1[d];
         }
       }
       acc0 = add_canon(acc0, redc_canon(T0, q, qn), q);
       acc1 = add_canon(acc1, redc_canon(T1, q, qn), q);
     }
-    const i64 o = (rb * a.T + t) * a.N + n;
-    a.out[o] = acc0;
-    a.out[(i64)a.R * a.B * a.T * a.N + o] = acc1;
+  }
+}
+
+// Up to MAXD digits (a compile-time bound, so the key and y stay in
+// registers); D <= MAXD at run time.
+template <int MAXD>
+__global__ void __launch_bounds__(kMacThreads) ks_mac(const __grid_constant__ KsMacArgs a) {
+  const int n = blockIdx.x * kMacThreads + threadIdx.x;
+  if (n >= a.N) return;
+  const i64 plane = (i64)a.KL * a.N;
+  const i64 dstep = (i64)a.T * a.N;           // one digit of y
+  const i64 ystep = a.D * dstep;              // one row of y
+  const i64 half = (i64)a.R * a.B * dstep;    // one key row's outputs
+  for (int rt = blockIdx.y; rt < a.R * a.T; rt += gridDim.y) {
+    const int t = rt / a.R, r = rt - t * a.R;
+    const uint32_t q = (uint32_t)a.tq[t * a.tqs], qn = neg_qinv(q);
+    const int src = a.perm ? (int)a.perm[(i64)r * a.N + n] : n;
+    const int kl = t < a.split ? t : t + a.kgap;
+    const void* key = a.key[r];
+    const i64 koff = (i64)kl * a.N + n;
+    uint32_t k0[MAXD], k1[MAXD], yv[MAXD];
+    const i64* yp = a.y + (i64)t * a.N + src;
+#pragma unroll
+    for (int d = 0; d < MAXD; ++d) {
+      if (d < a.D) {
+        k0[d] = load_key(key, a.key32, (2 * d) * plane + koff);
+        k1[d] = load_key(key, a.key32, (2 * d + 1) * plane + koff);
+        yv[d] = (uint32_t)yp[d * dstep];
+      }
+    }
+    i64* out = a.out + ((i64)r * a.B * a.T + t) * a.N + n;
+    for (i64 b = 0; b < a.B; ++b) {
+      uint32_t yn[MAXD];
+      if (b + 1 < a.B) {
+        const i64* ynp = yp + (b + 1) * ystep;
+#pragma unroll
+        for (int d = 0; d < MAXD; ++d)
+          if (d < a.D) yn[d] = (uint32_t)ynp[d * dstep];
+      }
+      uint32_t acc0, acc1;
+      mac_row<MAXD>(yv, k0, k1, a.D, q, qn, acc0, acc1);
+      out[b * dstep] = acc0;
+      out[half + b * dstep] = acc1;
+#pragma unroll
+      for (int d = 0; d < MAXD; ++d) yv[d] = yn[d];
+    }
   }
 }
 
@@ -421,16 +559,23 @@ int moai_limb_ew(const EwArgs* a, void* stream) {
 }
 
 int moai_base_conv(const BaseConvArgs* a, void* stream) {
-  const size_t smem = sizeof(uint32_t) * (size_t)a->T * (3 + a->A);
-  const dim3 grid((unsigned)((a->N + kConvThreads - 1) / kConvThreads), grid_rows(a->B * a->D));
-  base_conv<<<grid, kConvThreads, smem, (cudaStream_t)stream>>>(*a);
+  const int Tp = (a->T + kConvTile - 1) / kConvTile * kConvTile;
+  const size_t smem = sizeof(uint32_t) * (size_t)Tp * (4 + a->A) + sizeof(uint4) * a->A;
+  const dim3 grid((unsigned)((a->N + kConvCoeffs - 1) / kConvCoeffs), grid_rows(a->B * a->D));
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (a->A <= 16) base_conv<16><<<grid, kConvThreads, smem, s>>>(*a);
+  else base_conv<kMaxIn><<<grid, kConvThreads, smem, s>>>(*a);
   return (int)cudaGetLastError();
 }
 
 int moai_ks_mac(const KsMacArgs* a, void* stream) {
   const dim3 grid((unsigned)((a->N + kMacThreads - 1) / kMacThreads),
-                  grid_rows((i64)a->R * a->B * a->T));
-  ks_mac<<<grid, kMacThreads, 0, (cudaStream_t)stream>>>(*a);
+                  grid_rows((i64)a->R * a->T));
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (a->D <= 2) ks_mac<2><<<grid, kMacThreads, 0, s>>>(*a);
+  else if (a->D <= 4) ks_mac<4><<<grid, kMacThreads, 0, s>>>(*a);
+  else if (a->D <= 8) ks_mac<8><<<grid, kMacThreads, 0, s>>>(*a);
+  else ks_mac<kMaxDigits><<<grid, kMacThreads, 0, s>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -19,8 +19,11 @@ path, and what the kernels are held ``torch.equal`` to on the card):
 The source is built by ``cuda_build`` at first use.  Each wrapper checks
 device, dtype, shape and contiguity and raises on what its kernel does not
 take; it never falls back to the torch ops.  Each launch adds one to
-``launches``; a call with nothing to compute launches nothing.  The
-kernels launch on PyTorch's current stream and do not synchronise.
+``launches``; a call with nothing to compute launches nothing.  Beside it,
+``shapes`` counts the launches of ``base_conv`` and ``ks_mac`` by launch
+shape (``conv_shape``, ``mac_shape``), so a run can name its commonest
+one.  The kernels launch on PyTorch's current stream and do not
+synchronise.
 """
 
 from __future__ import annotations
@@ -33,12 +36,14 @@ import torch
 from . import cuda_build
 
 launches = {"limb_ew": 0, "base_conv": 0, "ks_mac": 0, "diag_mac": 0}
+shapes = {"base_conv": {}, "ks_mac": {}}
 
 EW_OPS = {"add": 0, "sub": 1, "neg": 2, "mul": 3, "from_mont": 4,
           "sub_mul": 5}
 MAX_DIMS = 6          # collapsed broadcast dimensions of limb_ew
 MAX_IN = 32           # input limbs of one base_conv digit
 MAX_ROT = 64          # rotations of one ks_mac launch
+MAX_DIGITS = 16       # digits of one ks_mac launch
 MAX_TERMS = 32        # diagonals of one diag_mac launch
 SMEM_BYTES = 48 * 1024
 
@@ -84,6 +89,8 @@ _ENTRY = {"limb_ew": "moai_limb_ew", "base_conv": "moai_base_conv",
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    for v in shapes.values():
+        v.clear()
 
 
 @functools.cache
@@ -102,13 +109,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(name: str, args, device: torch.device) -> None:
+def _launch(name: str, args, device: torch.device, shape=None) -> None:
     with torch.cuda.device(device):
         err = getattr(_lib(), _ENTRY[name])(
             ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{_ENTRY[name]} launch failed: CUDA error {err}")
     launches[name] += 1
+    if shape is not None:
+        shapes[name][shape] = shapes[name].get(shape, 0) + 1
 
 
 def _device_of(tensors) -> torch.device:
@@ -129,6 +138,12 @@ def _int_tensor(t: torch.Tensor, name: str, dtypes=(torch.int64,)):
 def _contiguous(t: torch.Tensor, name: str) -> None:
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _aligned16(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (the "
+                         f"kernel loads coefficient pairs)")
 
 
 def _vector(t: torch.Tensor, n: int, name: str) -> tuple[int, int]:
@@ -223,14 +238,23 @@ def limb_ew(op: str, a, b, c, q) -> torch.Tensor:
 # base_conv
 # ---------------------------------------------------------------------------
 
+def conv_shape(x: torch.Tensor, hat: torch.Tensor, hatinv, k) -> tuple:
+    """base_conv's launch shape: (B, S, D, A, T, N, with hatinv, with k)."""
+    S, N = x.shape[-2:]
+    D, A, T = hat.shape
+    B = x.numel() // (S * N) if x.numel() else 0
+    return (B, S, D, A, T, N, hatinv is not None, k is not None)
+
+
 def base_conv(x, src_q, hatinv, hat, tq, k=None, kq=None) -> torch.Tensor:
     """Fast base conversion on the card: x [..., S, N] (contiguous int64,
-    canonical), digits of A input limbs (hat [D, A, T], any strides) ->
-    [..., D, T, N] modulo tq (T entries).  With hatinv ([S], Montgomery
-    hat inverses modulo src_q) each input is first turned into
-    lam = from_mont(mont_mul(x, hatinv)); without it x holds lam.  With k
-    ([..., N], contiguous int64) and kq (T entries), mont_mul(k, kq) is
-    subtracted from each output.  See mod_arith.base_conv_plain."""
+    canonical, 16-byte aligned, N even), digits of A input limbs (hat
+    [D, A, T], any strides) -> [..., D, T, N] modulo tq (T entries).  With
+    hatinv ([S], Montgomery hat inverses modulo src_q) each input is first
+    turned into lam = from_mont(mont_mul(x, hatinv)); without it x holds
+    lam.  With k ([..., N], contiguous int64) and kq (T entries),
+    mont_mul(k, kq) is subtracted from each output.  See
+    mod_arith.base_conv_plain."""
     tensors = [t for t in (x, src_q, hatinv, hat, tq, k, kq) if t is not None]
     device = _device_of(tensors)
     _int_tensor(x, "x")
@@ -239,20 +263,22 @@ def base_conv(x, src_q, hatinv, hat, tq, k=None, kq=None) -> torch.Tensor:
     if x.dim() < 2 or hat.dim() != 3:
         raise ValueError(f"x {tuple(x.shape)} is not [..., S, N] or hat "
                          f"{tuple(hat.shape)} not [D, A, T]")
-    S, N = x.shape[-2], x.shape[-1]
-    D, A, T = hat.shape
+    shape = conv_shape(x, hat, hatinv, k)
+    B, S, D, A, T, N = shape[:6]
     if not (0 < A <= MAX_IN and (D - 1) * A < S <= D * A):
         raise ValueError(f"{S} input limbs do not make {D} digits of {A} "
                          f"(at most {MAX_IN}) limbs")
-    smem = 4 * T * (3 + A)
+    if N % 2:
+        raise ValueError(f"base_conv takes an even N, got {N}")
+    smem = 4 * ((T + 3) // 4 * 4) * (4 + A) + 16 * A
     if smem > SMEM_BYTES:
         raise ValueError(f"{T} targets x {A} limbs need {smem} bytes of "
                          f"shared memory, over {SMEM_BYTES}")
     out = torch.empty(x.shape[:-2] + (D, T, N), dtype=torch.int64,
                       device=device)
-    B = x.numel() // (S * N) if x.numel() else 0
     if B == 0:
         return out
+    _aligned16(x, "x")
     args = _BaseConvArgs(x=x.data_ptr(), hs0=hat.stride(0),
                          hs1=hat.stride(1), hs2=hat.stride(2),
                          hat=hat.data_ptr(), out=out.data_ptr(), B=B, S=S,
@@ -266,18 +292,28 @@ def base_conv(x, src_q, hatinv, hat, tq, k=None, kq=None) -> torch.Tensor:
     if k is not None:
         _int_tensor(k, "k")
         _contiguous(k, "k")
+        _aligned16(k, "k")
         if k.numel() != B * N:
             raise ValueError(f"k {tuple(k.shape)} is not one row of {N} per "
                              f"input row of x {tuple(x.shape)}")
         args.k = k.data_ptr()
         args.kq, args.kqs = _vector(kq, T, "kq")
-    _launch("base_conv", args, device)
+    _launch("base_conv", args, device, shape)
     return out
 
 
 # ---------------------------------------------------------------------------
 # ks_mac
 # ---------------------------------------------------------------------------
+
+def mac_shape(y: torch.Tensor, keys: list, q_limbs: int, perm) -> tuple:
+    """ks_mac's launch shape: (R, B, D, T, N, KL, q_limbs, int32 keys,
+    with perm)."""
+    D, T, N = y.shape[-3:]
+    B = y.numel() // (D * T * N) if y.numel() else 0
+    return (len(keys), B, D, T, N, keys[0].shape[-2], q_limbs,
+            keys[0].dtype == torch.int32, perm is not None)
+
 
 def ks_mac(y, keys, q_limbs: int, tq, perm=None):
     """The key-switch MAC on the card: y [..., D, T, N] (contiguous int64,
@@ -316,9 +352,12 @@ def ks_mac(y, keys, q_limbs: int, tq, perm=None):
             raise ValueError(f"perm {tuple(perm.shape)} is not [{R}, {N}]")
     if R > MAX_ROT:
         raise ValueError(f"{R} rotations in one launch, at most {MAX_ROT}")
-    lead = y.shape[:-3]
-    B = y.numel() // (D * T * N) if y.numel() else 0
-    out = torch.empty((2, R) + lead + (T, N), dtype=torch.int64, device=device)
+    if D > MAX_DIGITS:
+        raise ValueError(f"{D} digits in one launch, at most {MAX_DIGITS}")
+    shape = mac_shape(y, keys, q_limbs, perm)
+    B = shape[1]
+    out = torch.empty((2, R) + y.shape[:-3] + (T, N), dtype=torch.int64,
+                      device=device)
     if B:
         args = _KsMacArgs(y=y.data_ptr(), out=out.data_ptr(), B=B,
                           key32=int(keys[0].dtype == torch.int32), KL=KL,
@@ -327,7 +366,7 @@ def ks_mac(y, keys, q_limbs: int, tq, perm=None):
         for r, key in enumerate(keys):
             args.key[r] = key.data_ptr()
         args.tq, args.tqs = _vector(tq, T, "tq")
-        _launch("ks_mac", args, device)
+        _launch("ks_mac", args, device, shape)
     if perm is None:
         return out[0, 0], out[1, 0]
     return out[0], out[1]

@@ -28,6 +28,7 @@ from moai_tpu_torch.models.bert import BertDims, DepthPlan
 from moai_tpu_torch.ntt import ntt, intt, ntt_plain, intt_plain
 from moai_tpu_torch.params import CKKSConfig, Context, \
     test_config as _test_config
+from moai_tpu_torch.primes import ntt_primes_near
 
 
 @pytest.fixture
@@ -75,7 +76,8 @@ def test_limb_kernels_match_plain(card, logN):
     operands past the residues' range), base_conv at the key-switch
     decomposition of every level, the mod-down and ModRaise's conversion,
     ks_mac with int64 and int32 keys, with and without the hoisted
-    permutation, and diag_mac; each kernel launched."""
+    permutation, and diag_mac, then the edge shapes of _limb_edge_shapes;
+    each kernel launched."""
     ctx = Context(dataclasses.replace(_test_config(), logN=logN), device=card)
     dv, L, K, N = ctx.dev, ctx.L, ctx.K, ctx.cfg.N
     gen = torch.Generator(card).manual_seed(logN)
@@ -152,8 +154,96 @@ def test_limb_kernels_match_plain(card, logN):
     pts = res(qall[:L], (9,))
     assert torch.equal(ma.diag_mac(cts, pts, q, rinv),
                        ma.diag_mac_plain(cts, pts, q, rinv))
+    _limb_edge_shapes(ctx, res)
     torch.cuda.synchronize()
     assert all(limb_cuda.launches[k] > before[k] for k in before)
+
+
+def _galois_perms(N, steps, device):
+    """NTT-domain permutations of the rotations by ``steps``
+    (keys.KeyGenerator.galois_perm of 5^s mod 2N)."""
+    k = torch.arange(N, device=device)
+    return torch.stack([((pow(5, s, 2 * N) * (2 * k + 1)) % (2 * N) - 1) // 2
+                        for s in steps])
+
+
+def _limb_edge_shapes(ctx, res):
+    """base_conv and ks_mac on odd B and B = 1, ks_mac over MAX_ROT
+    rotations through real Galois permutations, and every compile-time
+    bucket of both kernels (base_conv digits of 8, 16, 20 and 32 inputs,
+    ks_mac of 3, 7 and 13 digits, T not a multiple of the tile of four) on
+    primes just below 2^30, and base_conv's input conversion on operands
+    past the residues' range."""
+    dv, L, N = ctx.dev, ctx.L, ctx.cfg.N
+    card = dv["q"].device
+    qall = dv["q"]
+    D = ctx.dnum
+    qt = torch.cat([qall[:L], qall[L:]]).reshape(-1, 1)
+    rt = torch.cat([dv["rinv"][:L], dv["rinv"][L:]]).reshape(-1, 1)
+    hat = dv["ks_hat_mm"][L, :D]
+
+    def same(got, want, what):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), what
+    for B in (1, 3):
+        args = (res(qall[:L], (B,)), dv["ks_q_pad"], dv["ks_rinv_pad"],
+                dv["ks_hatinv_mont"][L, :D], hat, qt, rt)
+        same(ma.base_conv(*args), ma.base_conv_plain(*args), ("B", B))
+        y = res(qt.reshape(-1), (B, D))
+        key = res(qall, (ctx.dnum, 2))
+        same(ma.ks_mac(y, key, L, qt, rt), ma.ks_mac_plain(y, key, L, qt, rt),
+             ("B", B))
+    R = limb_cuda.MAX_ROT
+    perm = _galois_perms(N, range(1, R + 1), card)
+    keys = [res(qall, (ctx.dnum, 2)).to(torch.int32) for _ in range(2)] * (
+        R // 2)
+    y = res(qt.reshape(-1), (2, D))
+    same(ma.ks_mac(y, keys, L, qt, rt, perm),
+         ma.ks_mac_plain(y, keys, L, qt, rt, perm), "MAX_ROT")
+    del keys, perm, y
+
+    big = ntt_primes_near(29.99, 2, 40)
+    primes = torch.tensor(big, device=card)
+    rinvs = torch.tensor([ma.mont_constants(p)["rinv"] for p in big],
+                         device=card)
+    for D, A, S, nt in ((1, 8, 8, 5), (1, 16, 16, 7), (2, 20, 33, 5),
+                        (1, 32, 32, 6)):
+        pad = torch.arange(D * A, device=card) % S
+        tq = primes[S:S + nt]
+        hatinv = torch.randint(0, 1 << 62, (D * A,), device=card).remainder_(
+            primes[pad])
+        hat = torch.randint(0, 1 << 62, (D, A, nt), device=card).remainder_(
+            tq)
+        args = (res(primes[:S], (3,)), primes[pad], rinvs[pad], hatinv, hat,
+                tq.reshape(-1, 1), rinvs[S:S + nt].reshape(-1, 1))
+        same(ma.base_conv(*args), ma.base_conv_plain(*args), (D, A, S, nt))
+    # the conversion's general path: inputs past 2^32 and 2^62, a hat
+    # inverse past 2^31
+    x = res(primes[:5], (3,))
+    x[0, :, 5:9] = torch.tensor([1 << 32, (1 << 40) + 3, 1 << 62,
+                                 (1 << 63) - 1], device=card)
+    hatinv = torch.randint(0, 1 << 62, (5,), device=card).remainder_(
+        primes[:5])
+    hatinv[2] = (1 << 31) + 7
+    hat = torch.randint(0, 1 << 62, (1, 5, 3), device=card).remainder_(
+        primes[5:8])
+    args = (x, primes[:5], rinvs[:5], hatinv, hat,
+            primes[5:8].reshape(-1, 1), rinvs[5:8].reshape(-1, 1))
+    same(ma.base_conv(*args), ma.base_conv_plain(*args), "general path")
+    q_limbs, n_q, kp = 20, 3, 4
+    KL = q_limbs + kp
+    tq = torch.cat([primes[:n_q], primes[q_limbs:KL]]).reshape(-1, 1)
+    trinv = torch.cat([rinvs[:n_q], rinvs[q_limbs:KL]]).reshape(-1, 1)
+    perm = _galois_perms(N, (3, 7), card)
+    for D, dt in ((3, torch.int64), (7, torch.int32), (13, torch.int64)):
+        y = res(tq.reshape(-1), (3, D))
+        keys = [res(primes[:KL], (D, 2)).to(dt) for _ in range(2)]
+        same(ma.ks_mac(y, keys[0], q_limbs, tq, trinv),
+             ma.ks_mac_plain(y, keys[0], q_limbs, tq, trinv), D)
+        same(ma.ks_mac(y, keys, q_limbs, tq, trinv, perm),
+             ma.ks_mac_plain(y, keys, q_limbs, tq, trinv, perm), D)
 
 
 def test_small_head_on_card(card):

@@ -5,16 +5,19 @@ The kernels run only on a CUDA card (tests/test_torch_cuda.py holds them
 torch.equal to the plain versions there).  Here each kernel's exact
 algorithm is modelled in numpy, step for step: -q^-1 mod 2^32 by Newton
 from q, REDC with R = 2^32, the fast paths and the remainder branch of the
-elementwise ops, groups of four products per REDC in the MACs (asserting
-that every group sum stays below q * 2^32, REDC's input range), the
-canonical 32-bit sums.  The models must equal the plain versions on every
-prime of flagship_config and head_config(15, 13), at their largest digit
-count, digit size and special-prime count, on edge values (0, 1, q - 1,
-inputs >= q where the call sites pass them) and on the operands past the
-residues' range that only the remainder branch sees.  The launch layout of
-the elementwise kernel (collapsed broadcast dims, strides, rows) is
-replayed on each broadcast pattern of the call sites, and CPU tensors are
-shown to take the plain versions.  No JAX."""
+elementwise ops, groups of four products per REDC in ks_mac and diag_mac
+(asserting that every group sum stays below q * 2^32, REDC's input range),
+base_conv's register tiles, lazy 64-bit sums of up to 16 products
+(asserted not to wrap) and two-step REDC, each kernel's flat index maps
+and compile-time buckets, the canonical 32-bit sums.  The models must
+equal the plain versions on every prime of flagship_config and
+head_config(15, 13), at their largest digit count, digit size and
+special-prime count, on edge values (0, 1, q - 1, inputs >= q where the
+call sites pass them) and on the operands past the residues' range that
+only the remainder branch sees.  The launch layout of the elementwise
+kernel (collapsed broadcast dims, strides, rows) is replayed on each
+broadcast pattern of the call sites, and CPU tensors are shown to take the
+plain versions.  No JAX."""
 
 import numpy as np
 import pytest
@@ -110,62 +113,198 @@ def k_ew(op, a, b, c, q):
 
 
 def group_sum(lam, hat, q):
-    """The MACs' canonical sum of REDC'd groups of four products."""
+    """ks_mac's and diag_mac's canonical sum of REDC'd groups of four
+    products."""
     q = np.asarray(q, U64)
     acc = np.zeros(np.broadcast_shapes(lam[0].shape, q.shape), U64)
     for i in range(0, len(lam), 4):
         T = sum(np.asarray(lam[j], U64) * np.asarray(hat[j], U64)
                 for j in range(i, min(i + 4, len(lam))))
         assert (T < q * U64(TWO32)).all(), "a group sum passes REDC's range"
-        r = redc(T, q)
-        r = np.where(r >= q, r - q, r)
-        acc = acc + r
-        acc = np.where(acc >= q, acc - q, acc)
+        acc = add_canon(acc, redc_canon(T, q), q)
     return acc
 
 
-def k_base_conv(x, src_q, hatinv, hat, tq, k=None, kq=None):
-    x = np.asarray(x, I64)
-    S = x.shape[-2]
-    D, A, T = hat.shape
-    out = np.zeros(x.shape[:-2] + (D, T, x.shape[-1]), I64)
-    for d in range(D):
-        lo, cnt = d * A, min(A, S - d * A)
-        lam = []
-        for i in range(cnt):
-            v = x[..., lo + i, :]
-            if hatinv is not None:
-                qi = src_q[lo + i]
-                v = k_from_mont(k_mont_mul(v, hatinv[lo + i], qi), qi)
-            lam.append(v.astype(U32).astype(U64))
-        for t in range(T):
-            acc = group_sum(lam, [hat[d, j, t] for j in range(cnt)], tq[t])
-            if k is not None:
-                kt = k_mont_mul(k, kq[t], tq[t]).astype(U64)
-                acc = np.where(acc >= kt, acc - kt, acc + U64(tq[t]) - kt)
-            out[..., d, t, :] = acc.astype(I64)
+def redc_canon(T, q):
+    r = redc(T, q)
+    return np.where(r >= q, r - q, r)
+
+
+def add_canon(acc, t, q):
+    s = acc + t
+    return np.where(s >= q, s - q, s)
+
+
+def redc2_canon(S, q):
+    """base_conv's reduction: S * 2^-64 mod q for any S < 2^64, two REDC
+    steps (the first on all 64 bits of S), at most q before the subtract."""
+    S, q = np.asarray(S, U64), np.asarray(q, U64)
+    lo = U64(TWO32 - 1)
+    qn = neg_qinv(q)
+    m1 = ((S & lo) * qn) & lo
+    s1 = (S >> U64(32)) + ((m1 * q + (S & lo)) >> U64(32))
+    assert (s1 <= U64(TWO32 - 1) + q).all()
+    m2 = ((s1 & lo) * qn) & lo
+    s2 = (s1 + m2 * q) >> U64(32)
+    assert (s2 <= q).all()
+    return np.where(s2 >= q, s2 - q, s2)
+
+
+def lazy_add(S, p):
+    """S + p in uint64, asserting that the sum does not wrap (p < 2^64)."""
+    out = S + p
+    assert (out >= S).all(), "a lazy 64-bit sum passes 2^64"
     return out
 
 
+CONV_THREADS, CONV_TILE, LAZY = 128, 4, 16
+MAC_THREADS = 256
+
+
+def conv_bucket(A):
+    """base_conv's compile-time bound on a digit's inputs (the launcher's
+    dispatch)."""
+    return 16 if A <= 16 else 32
+
+
+def mac_bucket(D):
+    return next(c for c in (2, 4, 8, 16) if D <= c)
+
+
+def to_lam(v, q, hatinv):
+    """base_conv's input conversion, from_mont(mont_mul(v, hatinv)): one
+    REDC of v * (hatinv * 2^-32 mod q) where the torch ops' int64 product
+    is exact (v < 2^32, hatinv < 2^31), else the elementwise ops' path."""
+    v = np.asarray(v, I64)
+    hp = int(k_from_mont(hatinv, q))
+    lean = (v.view(U64) < U64(TWO32)) & (0 <= hatinv < 1 << 31)
+    fast = redc_canon(np.where(lean, v, 0).astype(U64) * U64(hp), U64(q))
+    slow = k_from_mont(k_mont_mul(v, hatinv, q), q)
+    return np.where(lean, fast.astype(I64), slow)
+
+
+def k_base_conv(x, src_q, hatinv, hat, tq, k=None, kq=None):
+    """The base_conv kernel step for step on flat arrays: the block's
+    tables (q padded with 1 to a multiple of the tile, -q^-1, 2^64 mod q,
+    hat * 2^32 mod q per digit), each thread's coefficient pair
+    n = 2 (blockIdx.x * 128 + threadIdx.x) with its lam in registers, the
+    targets in tiles of four, lazy 64-bit sums of up to 16 products, two
+    REDC steps per sum, the k term, and the flat output index; the inputs'
+    conversion as to_lam."""
+    x = np.asarray(x, I64)
+    S, Nn = x.shape[-2:]
+    D, A, T = hat.shape
+    assert Nn % 2 == 0
+    B = x.size // (S * Nn)
+    xf = x.reshape(-1)
+    kf = None if k is None else np.asarray(k, I64).reshape(-1)
+    out = np.full(B * D * T * Nn, -1, I64)
+    MAXC = conv_bucket(A)
+    Tp = -(-T // CONV_TILE) * CONV_TILE
+    s_q = np.ones(Tp, U64)
+    s_q[:T] = np.asarray(tq, I64)[:T]
+    with np.errstate(over="ignore"):
+        r1 = (U32(0) - s_q.astype(U32)) % s_q.astype(U32)
+    s_r2 = r1.astype(U64) * r1 % s_q
+    s_kq = np.zeros(Tp, U64)
+    if k is not None:
+        s_kq[:T] = np.asarray(kq, I64).reshape(-1)[:T].astype(U32)
+    n = 2 * np.arange(-(-Nn // (2 * CONV_THREADS)) * CONV_THREADS)
+    n = n[n < Nn]                                  # the threads that work
+    for bd in range(B * D):
+        d, b = bd % D, bd // D
+        lo, cnt = d * A, min(A, S - d * A)
+        s_hat = np.zeros((cnt, Tp), U64)
+        for ai in range(cnt):
+            h = np.asarray(hat[d, ai], I64).astype(U32).astype(U64)
+            s_hat[ai, :T] = redc_canon(h * s_r2[:T], s_q[:T])
+        lam = []
+        for i in range(cnt):
+            v = np.stack([xf[(b * S + lo + i) * Nn + n + c] for c in (0, 1)])
+            if hatinv is not None:
+                v = to_lam(v, int(src_q[lo + i]), int(hatinv[lo + i]))
+            lam.append(v.astype(U32).astype(U64))          # [2, pairs]
+        kv = None if k is None else np.stack(
+            [kf[b * Nn + n + c] for c in (0, 1)])
+        for t0 in range(0, T, CONV_TILE):
+            qs = s_q[t0:t0 + CONV_TILE]
+            res = None
+            for g0 in range(0, MAXC, LAZY):
+                if g0 >= cnt:
+                    continue
+                Ssum = np.zeros((CONV_TILE, 2, len(n)), U64)
+                for i in range(g0, min(g0 + LAZY, MAXC)):
+                    if i < cnt:
+                        h = s_hat[i, t0:t0 + CONV_TILE]
+                        Ssum = lazy_add(Ssum, lam[i][None] * h[:, None, None])
+                r = redc2_canon(Ssum, qs[:, None, None])
+                res = r if g0 == 0 else add_canon(res, r, qs[:, None, None])
+            for j in range(CONV_TILE):
+                t = t0 + j
+                if t >= T:
+                    continue
+                r = res[j]
+                if k is not None:
+                    q = int(qs[j])
+                    kt = k_mont_mul(kv, int(s_kq[t]), q).astype(U64)
+                    r = np.where(r >= kt, r - kt, r + U64(q) - kt)
+                for c in (0, 1):
+                    out[(bd * T + t) * Nn + n + c] = r[c].astype(I64)
+    assert (out >= 0).all(), "an output was not written"
+    return out.reshape(x.shape[:-2] + (D, T, Nn))
+
+
 def k_ks_mac(y, keys, q_limbs, tq, perm=None):
+    """The ks_mac kernel step for step on flat arrays: the grid's rows
+    rt over (t, r), r fastest, each thread's coefficient n = blockIdx.x *
+    256 + threadIdx.x, its key values and perm[r, n] loaded once, the loop
+    over the B rows of y, groups of four digits per REDC, and the flat
+    output index of [2, R, B, T, N]."""
     y = np.asarray(y, I64)
-    D, T, n = y.shape[-3:]
+    D, T, Nn = y.shape[-3:]
+    B = y.size // (D * T * Nn)
     keys = [keys] if perm is None else keys
-    KL = keys[0].shape[-2]
+    R, KL = len(keys), keys[0].shape[-2]
     n_q = T - (KL - q_limbs)
-    outs = [np.zeros((len(keys),) + y.shape[:-3] + (T, n), I64)
-            for _ in range(2)]
-    for r, key in enumerate(keys):
-        src = np.arange(n) if perm is None else perm[r]
-        for t in range(T):
-            kl = t if t < n_q else t + q_limbs - n_q
-            ys = [y[..., d, t, src].astype(U64) for d in range(D)]
-            for p in range(2):
-                outs[p][r, ..., t, :] = group_sum(
-                    ys, [key[d, p, kl].astype(I64) for d in range(D)], tq[t])
+    split, kgap = n_q, q_limbs - n_q
+    MAXD = mac_bucket(D)
+    yf = y.reshape(-1)
+    out = np.full(2 * R * B * T * Nn, -1, I64)
+    plane, dstep = KL * Nn, T * Nn
+    ystep, half = D * dstep, R * B * dstep
+    n = np.arange(-(-Nn // MAC_THREADS) * MAC_THREADS)
+    n = n[n < Nn]
+    for rt in range(R * T):
+        t, r = rt // R, rt % R
+        q = int(tq[t])
+        src = n if perm is None else np.asarray(perm).reshape(-1)[r * Nn + n]
+        kl = t if t < split else t + kgap
+        kf = np.asarray(keys[r]).reshape(-1)
+        k0 = [kf[2 * d * plane + kl * Nn + n].astype(U32).astype(U64)
+              for d in range(D)]
+        k1 = [kf[(2 * d + 1) * plane + kl * Nn + n].astype(U32).astype(U64)
+              for d in range(D)]
+        for b in range(B):
+            yv = [yf[b * ystep + d * dstep + t * Nn + src].astype(U32)
+                  .astype(U64) for d in range(D)]
+            acc = []
+            for kk in (k0, k1):
+                a = np.zeros(len(n), U64)
+                for d0 in range(0, MAXD, 4):
+                    if d0 < D:
+                        Tg = sum(yv[d] * kk[d] for d in range(d0, min(
+                            d0 + 4, MAXD)) if d < D)
+                        assert (Tg < U64(q) * U64(TWO32)).all()
+                        a = add_canon(a, redc_canon(Tg, U64(q)), U64(q))
+                acc.append(a)
+            o = (r * B * T + t) * Nn + n + b * dstep
+            out[o] = acc[0].astype(I64)
+            out[half + o] = acc[1].astype(I64)
+    assert (out >= 0).all(), "an output was not written"
+    out = out.reshape((2, R) + y.shape[:-3] + (T, Nn))
     if perm is None:
-        return outs[0][0], outs[1][0]
-    return outs[0], outs[1]
+        return out[0, 0], out[1, 0]
+    return out[0], out[1]
 
 
 def k_diag_mac(cts, pts, q):
@@ -177,11 +316,11 @@ def k_diag_mac(cts, pts, q):
     return out
 
 
-def residues(qs, lead, rng, edges=True):
-    """Canonical residues [*lead, len(qs), N] with 0, 1, q-1, q-2 (and
+def residues(qs, lead, rng, edges=True, n=N):
+    """Canonical residues [*lead, len(qs), n] with 0, 1, q-1, q-2 (and
     q-1 over a whole row) among them."""
     qs = np.asarray(qs, I64).reshape(-1, 1)
-    x = rng.integers(0, qs, size=lead + (len(qs), N))
+    x = rng.integers(0, qs, size=lead + (len(qs), n))
     if edges:
         x[..., :4] = np.concatenate([np.zeros_like(qs), np.ones_like(qs),
                                      qs - 1, qs - 2], axis=1)
@@ -249,16 +388,30 @@ def test_elementwise_model_equals_plain():
         assert np.array_equal(k_mont_mul(u, c["r2"], q), want)
 
 
+def galois_perms(n, steps):
+    """NTT-domain permutations of the rotations by ``steps`` at ring
+    dimension n (keys.KeyGenerator.galois_perm of 5^s mod 2n)."""
+    k = np.arange(n, dtype=I64)
+    return np.stack([((pow(5, s, 2 * n) * (2 * k + 1)) % (2 * n) - 1) // 2
+                     for s in steps])
+
+
 def test_conversions_and_macs_equal_plain(ctx):
     """base_conv at the key-switch decomposition (every digit at the top
-    level, a partial last digit), the mod-down (K limbs) and ModRaise (with
-    k); ks_mac with int64 and int32 keys, with and without the hoisted
-    rotations' permutation, over every active digit; diag_mac over a giant
-    step of diagonals.  Group sums are checked against REDC's range."""
+    level, partial last digits at lower levels, the levels whose targets
+    number 87, 45 and 38, ragged against the tile of four), the mod-down
+    (K limbs) and ModRaise (with k); ks_mac with int64 and int32 keys, with
+    and without the hoisted rotations' real Galois permutations (R = 3),
+    over every active digit, on B = 2 rows and at the top level also on
+    B = 1 and B = 3; diag_mac over a giant step of diagonals.  Lazy sums
+    are checked against 2^64 and group sums against REDC's range."""
     rng = np.random.default_rng(11)
     dv, L, K = ctx.dev, ctx.L, ctx.K
     qall = np.array(ctx.all_primes, I64)
-    for n_q in (L, L - ctx.alpha // 2 - 1):
+    levels = {L, L - ctx.alpha // 2 - 1, ctx.alpha + 1, 1} | {
+        t - K for t in (87, 45, 38) if 0 < t - K <= L}
+    perm = galois_perms(N, (1, 2, 5))
+    for n_q in sorted(levels, reverse=True):
         D = sum(1 for lo, _ in ctx.digit_ranges if lo < n_q)
         tq = np.concatenate([qall[:n_q], qall[L:]])
         trinv = torch.cat([dv["rinv"][:n_q], dv["rinv"][L:]])
@@ -273,19 +426,20 @@ def test_conversions_and_macs_equal_plain(ctx):
                           hat_t.numpy(), tq)
         assert np.array_equal(got, want.numpy()), ("decompose", n_q)
 
-        y = residues(tq, (2, D), rng)
-        for dtype in (torch.int64, torch.int32):
-            keys = [T(residues(qall, (ctx.dnum, 2), rng)).to(dtype)
-                    for _ in range(3)]
-            w0, w1 = ma.ks_mac_plain(T(y), keys[0], L, T(tq), trinv)
-            g0, g1 = k_ks_mac(y, keys[0].numpy(), L, tq)
-            assert np.array_equal(g0, w0.numpy())
-            assert np.array_equal(g1, w1.numpy())
-            perm = np.stack([rng.permutation(N) for _ in keys])
-            w0, w1 = ma.ks_mac_plain(T(y), keys, L, T(tq), trinv, T(perm))
-            g0, g1 = k_ks_mac(y, [k.numpy() for k in keys], L, tq, perm)
-            assert np.array_equal(g0, w0.numpy())
-            assert np.array_equal(g1, w1.numpy())
+        for B in ((2, 1, 3) if n_q == L else (2,)):
+            y = residues(tq, (B, D), rng)
+            for dtype in (torch.int64, torch.int32):
+                keys = [T(residues(qall, (ctx.dnum, 2), rng)).to(dtype)
+                        for _ in range(3)]
+                w0, w1 = ma.ks_mac_plain(T(y), keys[0], L, T(tq), trinv)
+                g0, g1 = k_ks_mac(y, keys[0].numpy(), L, tq)
+                assert np.array_equal(g0, w0.numpy()), (n_q, B, dtype)
+                assert np.array_equal(g1, w1.numpy()), (n_q, B, dtype)
+                w0, w1 = ma.ks_mac_plain(T(y), keys, L, T(tq), trinv,
+                                         T(perm))
+                g0, g1 = k_ks_mac(y, [k.numpy() for k in keys], L, tq, perm)
+                assert np.array_equal(g0, w0.numpy()), (n_q, B, dtype)
+                assert np.array_equal(g1, w1.numpy()), (n_q, B, dtype)
 
     # the mod-down: K special limbs to the n_q limbs of Q
     n_q = L - 3
@@ -318,6 +472,72 @@ def test_conversions_and_macs_equal_plain(ctx):
     want = ma.diag_mac_plain([T(c) for c in cts], T(pts), q,
                              dv["rinv"][:n_q].reshape(-1, 1))
     assert np.array_equal(k_diag_mac(cts, pts, qall[:n_q]), want.numpy())
+
+
+def test_tile_maps_buckets_and_lazy_groups():
+    """The launch maps past one block (N = 1024: four base_conv blocks of
+    256 coefficients; N = 512: two ks_mac blocks), every compile-time
+    bucket of both kernels with its guards, and what the chains never
+    reach: base_conv digits of 16 inputs (one full lazy group), 20 and 32
+    (two groups), odd B, T of 1 to 7 targets; ks_mac with 7 and 13 digits
+    (groups of four past the first) and two rotations."""
+    rng = np.random.default_rng(3)
+    ctx = Context(head_config(15, 13), device="cpu")
+    dv = ctx.dev
+    qall = np.array(ctx.all_primes, I64)
+    n = 1024
+    for D, A, S, nt in ((1, 16, 16, 7), (2, 20, 33, 5), (1, 32, 32, 6),
+                        (3, 3, 8, 1), (2, 5, 9, 3)):
+        src, tq = qall[:S], qall[S:S + nt]
+        x = residues(src, (3,), rng, n=n)
+        pad = np.arange(D * A) % S                 # the plain pads past S
+        q_pad, r_pad = T(qall[pad]), dv["rinv"][pad]
+        hatinv = T(rng.integers(0, qall[pad]))
+        hat = T(np.stack([rng.integers(0, tq, (A, nt)) for _ in range(D)]))
+        want = ma.base_conv_plain(T(x), q_pad, r_pad, hatinv, hat, T(tq),
+                                  dv["rinv"][S:S + nt])
+        got = k_base_conv(x, qall[pad], hatinv.numpy(), hat.numpy(), tq)
+        assert np.array_equal(got, want.numpy()), (D, A, S, nt)
+    # the conversion's general path: inputs past 2^32 (and past 2^62, where
+    # the torch ops' int64 products wrap) and a hat inverse past 2^31
+    x = residues(qall[:5], (3,), rng, n=n)
+    x[0, :, 5:9] = [1 << 32, (1 << 40) + 3, 1 << 62, (1 << 63) - 1]
+    hatinv = rng.integers(0, qall[:5])
+    hatinv[2] = (1 << 31) + 7
+    hat = T(rng.integers(0, qall[5:8], (1, 5, 3)))
+    want = ma.base_conv_plain(T(x), T(qall[:5]), dv["rinv"][:5], T(hatinv),
+                              hat, T(qall[5:8]), dv["rinv"][5:8])
+    got = k_base_conv(x, qall[:5], hatinv, hat.numpy(), qall[5:8])
+    assert np.array_equal(got, want.numpy()), "general path"
+
+    # ModRaise's form at N = 1024: two inputs, no hatinv, less k * kq
+    lam = residues(qall[:2], (3,), rng, n=n)
+    k = rng.integers(-1, 4, (3, n))
+    tq = qall[:7]
+    hat = T(rng.integers(0, tq, (1, 2, 7)))
+    kq = T(rng.integers(0, tq))
+    want = ma.base_conv_plain(T(lam), None, None, None, hat, T(tq),
+                              dv["rinv"][:7], T(k), kq)
+    got = k_base_conv(lam, None, None, hat.numpy(), tq, k, kq.numpy())
+    assert np.array_equal(got, want.numpy()), "ModRaise"
+
+    # ks_mac past one block, at 7 and 13 digits, one key and two rotations
+    n, q_limbs, n_q, kp = 512, 20, 3, 4
+    KL = q_limbs + kp
+    tq = np.concatenate([qall[:n_q], qall[q_limbs:KL]])
+    trinv = torch.cat([dv["rinv"][:n_q], dv["rinv"][q_limbs:KL]])
+    perm = galois_perms(n, (3, 7))
+    for D, dt in ((7, torch.int64), (13, torch.int32)):
+        assert mac_bucket(D) in (8, 16)
+        y = residues(tq, (3, D), rng, n=n)
+        keys = [T(residues(qall[:KL], (D, 2), rng, n=n)).to(dt)
+                for _ in perm]
+        w = ma.ks_mac_plain(T(y), keys[0], q_limbs, T(tq), trinv)
+        g = k_ks_mac(y, keys[0].numpy(), q_limbs, tq)
+        assert all(np.array_equal(a, b.numpy()) for a, b in zip(g, w)), D
+        w = ma.ks_mac_plain(T(y), keys, q_limbs, T(tq), trinv, T(perm))
+        g = k_ks_mac(y, [k.numpy() for k in keys], q_limbs, tq, perm)
+        assert all(np.array_equal(a, b.numpy()) for a, b in zip(g, w)), D
 
 
 def _replay_layout(op, ops):
