@@ -11,14 +11,15 @@ that file, so two versions compare in one call).
 
 1. Builds the kernels (moai_tpu_torch/csrc/ntt.cu and csrc/limb.cu) with
    nvcc for sm_90a, one nvcc per source, in parallel; prints each
-   kernel's registers and spills and the SASS instruction mix of base_conv
-   and ks_mac (cuobjdump), and reads the card's maximum SM clock for the
+   kernel's registers and spills and the SASS instruction mix of the limb
+   kernels (cuobjdump), and reads the card's maximum SM clock for the
    integer bound.
 2. bootstrap: at N=2^16 on flagship_config (entry.build_bootstrap: 32768
    slots, L 74 = q0 pair + 20 data pairs + 16 boot pairs, K 13, dnum 6,
-   Galois keys for every CoeffToSlot/SlotToCoeff step and the conjugation,
-   held as int32): set-up seconds (context, key generation, the
-   Bootstrapper with its encoded diagonals, encryption); then holds each
+   Galois keys for every CoeffToSlot/SlotToCoeff step and the
+   conjugation; every residue int32, as everywhere in the port): set-up
+   seconds (context, key generation, the Bootstrapper with its encoded
+   diagonals, encryption); then holds each
    kernel against its plain PyTorch version over all 87 limbs of this
    context and on limb slices (torch.equal), and times both at [8, 2, 87,
    2^16] beside the memory bound (one call per CUDA-event pair, and the
@@ -28,7 +29,8 @@ that file, so two versions compare in one call).
    then one pass of make_refresh over BOOT_BATCH ciphertexts of U(-0.8,
    0.8) slot values, each its own, from n_q0 + 2 limbs to the 42-limb data
    chain, with the launch counts set to 0 just before (every kernel must
-   have launched: both NTT kernels and the four limb kernels): seconds
+   have launched: both NTT kernels and the four limb kernels; the output
+   must hold int32 residues): seconds
    per pass, per ciphertext and per stage (ModRaise,
    each CoeffToSlot level, EvalMod real and imaginary, each SlotToCoeff
    level, the card synchronized between stages), the device's busy share
@@ -57,9 +59,10 @@ that file, so two versions compare in one call).
    (EncryptedBertModel's on_layer): its state saved with
    serial.save_layer_state into a temporary directory, loaded back onto the
    card and held torch.equal to the ciphertext in memory (gated), save and
-   load seconds and the file's bytes; then the decrypted output against the
-   chained float64 oracle (Model.oracle, gated at LAYER_ATOL) and against
-   plain_bert_layer chained (reported).  The launches of these checks are
+   load seconds and the file's bytes (the ciphertext handed to on_layer
+   and the one loaded back must hold int32); then the decrypted output
+   against the chained float64 oracle (Model.oracle, gated at
+   LAYER_ATOL) and against plain_bert_layer chained (reported).  The launches of these checks are
    not counted as the path's.  Ends with the OpTrace summary of layer 0: op
    counts and the lowest n_q.
 5. layer (only when named): one encoder layer at the same width and chain
@@ -75,9 +78,10 @@ ks_mac at its commonest hoisted shape through real Galois permutations
 
 Prints a {"kernels": [...]} line, one row per kernel and path (diag_mac
 on the bootstrap only): each row's check and timings come from that
-path's context and its launches from that path's run; base_conv's and
-ks_mac's bound is the larger of the byte and the integer bound
-(``bound_by``), the others' the byte bound; then the card's
+path's context and its launches from that path's run; the limb kernels'
+bound is the larger of the byte bound (the tensors' own element sizes:
+4-byte residues) and the integer bound (``bound_by``), the NTT's the
+byte bound; then the card's
 name and power limit, and as its last line {"ok": true, "device":
 {...}}.  Exits non-zero, printing no result,
 without a CUDA card or without the package beside it.
@@ -99,7 +103,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
-# The integer bound of base_conv and ks_mac: INT32 issue slots over the
+# The integer bound of the limb kernels: INT32 issue slots over the
 # card's INT32 rate, 64 lanes per SM per clock (NVIDIA H100 Tensor Core GPU
 # Architecture white paper) x the SMs x the card's maximum SM clock
 # (nvidia-smi clocks.max.sm, read at the start).  The slots each step
@@ -107,13 +111,16 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 # instruction mix printed at the start): a 32x32 -> 64-bit multiply-add is
 # one IMAD.WIDE.U32, two slots; base_conv's two-step reduction of a 64-bit
 # sum (two IMAD, two IMAD.WIDE.U32, a 64-bit add, the canonical subtract)
-# ten; one REDC of a group of products with its canonical add (ks_mac)
-# eight; the conversion of an input (a product and one REDC) seven.
+# ten; one REDC of a group of products with its canonical add (ks_mac,
+# diag_mac) eight; the conversion of an input (a product and one REDC)
+# seven; limb_ew's Montgomery product of one element (the product, one
+# REDC, the canonical subtract and the range check) eight.
 INT32_LANES_PER_SM = 64
 SLOTS_PER_PRODUCT = 2
 SLOTS_PER_REDC2 = 10
 SLOTS_PER_GROUP_REDC = 8
 SLOTS_PER_CONVERT = 7
+SLOTS_PER_EW_MUL = 8
 HEAD = dict(logN=15, n_data_levels=16, num_x=128, num_row=128, d_model=768,
             head_dim=64, exp_r=5, inv_iters=4, input_count=128)
 # Decrypted head output vs the float64 oracle, absolute, on outputs of
@@ -170,14 +177,14 @@ KERNELS = {
 # running the paths.
 MAIN_SHAPES = {
     "bootstrap": ((2, 13, 1, 13, 72, 65536, True, False),
-                  (1, 2, 6, 85, 65536, 87, 74, True, False),
-                  (2, 2, 6, 87, 65536, 87, 74, True, True)),
+                  (1, 2, 6, 85, 65536, 87, 74, False),
+                  (2, 2, 6, 87, 65536, 87, 74, True)),
     "head": ((64, 11, 1, 11, 4, 32768, True, False),
-             (1, 64, 1, 15, 32768, 45, 34, False, False),
-             (4, 11, 3, 43, 32768, 45, 34, False, True)),
+             (1, 64, 1, 15, 32768, 45, 34, False),
+             (4, 11, 3, 43, 32768, 45, 34, True)),
     "model": ((64, 10, 1, 10, 8, 32768, True, False),
-              (1, 64, 1, 18, 32768, 38, 28, False, False),
-              (4, 13, 3, 36, 32768, 38, 28, False, True)),
+              (1, 64, 1, 18, 32768, 38, 28, False),
+              (4, 13, 3, 36, 32768, 38, 28, True)),
 }
 # The kernels each path must launch: diag_mac serves the bootstrap's linear
 # transforms only.
@@ -214,7 +221,7 @@ def int32_ops_per_s() -> float:
 
 
 def sass_mix(lib) -> dict:
-    """The instruction mix of each base_conv and ks_mac instantiation in
+    """The instruction mix of each instantiation of the limb kernels in
     the built library (cuobjdump -sass): {function: {opcode: count}}, or
     {} where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -228,7 +235,7 @@ def sass_mix(lib) -> dict:
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             cur = None
-            for k in ("base_conv", "ks_mac"):
+            for k in ("limb_ew", "base_conv", "ks_mac", "diag_mac"):
                 if k in name:
                     cur = mix.setdefault(f"{k}<{name.split('ILi')[1].split('E')[0]}>"
                                          if "ILi" in name else name, {})
@@ -310,11 +317,18 @@ def require_launches(path: str, launches: dict, kern: dict) -> None:
         kern[k]["launches"] = launches[k]
 
 
+def require_int32(what: str, t: torch.Tensor) -> None:
+    """The port's residues are int32 at rest: fail on any other dtype."""
+    if t.dtype != torch.int32:
+        raise SystemExit(f"{what} holds {t.dtype} residues, not int32")
+
+
 def random_residues(qs: torch.Tensor, lead: tuple, N: int) -> torch.Tensor:
-    """Uniform residues [*lead, len(qs), N], row l below qs[l], on the card."""
+    """Uniform int32 residues [*lead, len(qs), N], row l below qs[l], on
+    the card."""
     r = torch.randint(0, 1 << 62, lead + (len(qs), N), dtype=torch.int64,
                       device=qs.device)
-    return r.remainder_(qs.reshape(-1, 1))
+    return r.remainder_(qs.reshape(-1, 1)).to(torch.int32)
 
 
 def check_kernels(ctx, path: str) -> dict:
@@ -406,28 +420,30 @@ def galois_perms(N: int, steps, device) -> torch.Tensor:
                         for s in steps])
 
 
-def conv_cost(shape) -> tuple:
-    """base_conv's bytes (each input read once, each output written once),
-    shape and least INT32 issue slots, from its launch shape
-    (limb_cuda.conv_shape): products, one two-step reduction per sum of
-    up to 16 products, the input conversions, ModRaise's k term."""
+def conv_cost(shape, elt: int) -> tuple:
+    """base_conv's bytes (each input read once, each output written once,
+    ``elt`` bytes a residue), shape and least INT32 issue slots, from its
+    launch shape (limb_cuda.conv_shape): products, one two-step reduction
+    per sum of up to 16 products, the input conversions, ModRaise's k
+    term."""
     B, S, D, A, T, N, hatinv, k = shape
     cnts = [min(A, S - d * A) for d in range(D)]
     slots = B * N * T * (SLOTS_PER_PRODUCT * sum(cnts) + SLOTS_PER_REDC2
                          * sum(-(-c // 16) for c in cnts))
     slots += SLOTS_PER_CONVERT * B * S * N if hatinv else 0
     slots += SLOTS_PER_GROUP_REDC * B * D * T * N if k else 0
-    return 8 * B * N * (S + D * T + (1 if k else 0)), shape, slots
+    return elt * B * N * (S + D * T + (1 if k else 0)), shape, slots
 
 
-def mac_cost(shape) -> tuple:
-    """ks_mac's bytes, shape and least INT32 issue slots from its launch
-    shape (limb_cuda.mac_shape): each output a sum of D products, REDC'd
-    in groups of four."""
-    R, B, D, T, N, KL, q_limbs, key32, with_perm = shape
+def mac_cost(shape, elt: int) -> tuple:
+    """ks_mac's bytes (``elt`` bytes a residue of y, the keys and the
+    output; 8 a permutation entry), shape and least INT32 issue slots from
+    its launch shape (limb_cuda.mac_shape): each output a sum of D
+    products, REDC'd in groups of four."""
+    R, B, D, T, N, KL, q_limbs, with_perm = shape
     outs = 2 * R * B * T * N
-    nbytes = (8 * B * D * T * N + (4 if key32 else 8) * R * D * 2 * T * N
-              + 8 * outs + (8 * R * N if with_perm else 0))
+    nbytes = (elt * (B * D * T * N + R * D * 2 * T * N + outs)
+              + (8 * R * N if with_perm else 0))
     return nbytes, shape, outs * (SLOTS_PER_PRODUCT * D
                                   + SLOTS_PER_GROUP_REDC * -(-D // 4))
 
@@ -450,18 +466,21 @@ def conv_inputs(ctx, shape):
         src = (None, None, None)
     k = kq = None
     if with_k:
-        k = torch.randint(0, A + 1, (B, N), device=x.device)
+        k = torch.randint(0, A + 1, (B, N), dtype=torch.int32,
+                          device=x.device)
         kq = random_residues(tq.reshape(-1), (), 1)[..., 0]
     args = (x, *src, hat, tq, rt, k, kq)
-    return lambda: ma.base_conv(*args), lambda: ma.base_conv_plain(*args)
+    return (lambda: ma.base_conv(*args), lambda: ma.base_conv_plain(*args),
+            x.element_size())
 
 
 def mac_inputs(ctx, shape):
     """Uniform inputs of ks_mac's launch shape on the card, over this
     context's primes, with the Galois permutations of the rotations by
-    1..R where the launch had a permutation: (kernel call, plain call)."""
+    1..R where the launch had a permutation: (kernel call, plain call,
+    bytes of a residue)."""
     from moai_tpu_torch import mod_arith as ma
-    R, B, D, T, N, KL, q_limbs, key32, with_perm = shape
+    R, B, D, T, N, KL, q_limbs, with_perm = shape
     dv, L = ctx.dev, ctx.L
     limbs = torch.cat([dv["q"][:q_limbs], dv["q"][L:L + KL - q_limbs]])
     lrinv = torch.cat([dv["rinv"][:q_limbs], dv["rinv"][L:L + KL - q_limbs]])
@@ -469,14 +488,15 @@ def mac_inputs(ctx, shape):
     tq = torch.cat([limbs[:n_q], limbs[q_limbs:]]).reshape(-1, 1)
     rt = torch.cat([lrinv[:n_q], lrinv[q_limbs:]]).reshape(-1, 1)
     y = random_residues(tq.reshape(-1), (B, D), N)
-    dt = torch.int32 if key32 else torch.int64
-    keys = [random_residues(limbs, (D, 2), N).to(dt) for _ in range(R)]
+    keys = [random_residues(limbs, (D, 2), N) for _ in range(R)]
     if not with_perm:
         return (lambda: ma.ks_mac(y, keys[0], q_limbs, tq, rt),
-                lambda: ma.ks_mac_plain(y, keys[0], q_limbs, tq, rt))
+                lambda: ma.ks_mac_plain(y, keys[0], q_limbs, tq, rt),
+                y.element_size())
     perm = galois_perms(N, range(1, R + 1), y.device)
     return (lambda: ma.ks_mac(y, keys, q_limbs, tq, rt, perm),
-            lambda: ma.ks_mac_plain(y, keys, q_limbs, tq, rt, perm))
+            lambda: ma.ks_mac_plain(y, keys, q_limbs, tq, rt, perm),
+            y.element_size())
 
 
 def time_main_shapes(ctx, kern: dict, shapes: dict) -> None:
@@ -499,9 +519,10 @@ def time_main_shapes(ctx, kern: dict, shapes: dict) -> None:
             f"{len(counts)} distinct, {sum(counts.values())} launches; the "
             f"commonest {[[list(s), n] for s, n in top[:5]]}")
         shape, n = top[0]
-        kern_fn, plain_fn = build(ctx, shape)
+        kern_fn, plain_fn, elt = build(ctx, shape)
         m = measure(f"{name} at the pass's commonest {key} shape",
-                    [(kern_fn, plain_fn)], kern_fn, plain_fn, *cost(shape))
+                    [(kern_fn, plain_fn)], kern_fn, plain_fn,
+                    *cost(shape, elt))
         kern[name][key] = dict(m, launches_at_shape=n,
                                distinct_shapes=len(counts))
         del kern_fn, plain_fn
@@ -514,10 +535,9 @@ def check_limb_kernels(ctx, path: str) -> dict:
     path's chain: ciphertexts [B, 2, L, N] (B = BOOT_BATCH on the
     bootstrap, else 8, as the NTT check), the key-switch decomposition of
     their c1 at the top level and at a level with a partial digit, the
-    mod-down, ModRaise's conversion, the MAC against keys of the path's
-    dtype (int32 on the bootstrap) and of the other, with and without the
-    hoisted permutation, and (bootstrap) a giant step of 8 diagonals, the
-    most lt_group 5 gives.  Each timed at its main case."""
+    mod-down, ModRaise's conversion, the MAC with and without the hoisted
+    permutation, and (bootstrap) a giant step of 8 diagonals, the most
+    lt_group 5 gives; every residue int32.  Each timed at its main case."""
     from moai_tpu_torch import limb_cuda
     from moai_tpu_torch import mod_arith as ma
     dv, L, K, N = ctx.dev, ctx.L, ctx.K, ctx.cfg.N
@@ -528,7 +548,8 @@ def check_limb_kernels(ctx, path: str) -> dict:
     q, rinv = qall[:L].reshape(-1, 1), dv["rinv"][:L].reshape(-1, 1)
     a, b = (random_residues(qall[:L], (B, 2), N) for _ in range(2))
     col = random_residues(qall[:L], (B, 1), 1)
-    u = torch.randint(0, 1 << 30, (B, 1, N), device=a.device)
+    u = torch.randint(0, 1 << 30, (B, 1, N), dtype=torch.int32,
+                      device=a.device)
     r2 = dv["r2"][:L].reshape(-1, 1)
     res = {}
     res["limb_ew"] = measure("limb_ew", [
@@ -547,7 +568,8 @@ def check_limb_kernels(ctx, path: str) -> dict:
          lambda: ma.sub_mont_mul_plain(a, b, col, q, rinv))],
         lambda: ma.mont_mul(a, b, q, rinv),
         lambda: ma.mont_mul_plain(a, b, q, rinv),
-        3 * a.numel() * 8, tuple(a.shape))
+        3 * a.numel() * a.element_size(), tuple(a.shape),
+        a.numel() * SLOTS_PER_EW_MUL)
 
     def ks_args(n_q):
         D = sum(1 for lo, _ in ctx.digit_ranges if lo < n_q)
@@ -562,7 +584,8 @@ def check_limb_kernels(ctx, path: str) -> dict:
     _, _, _, mid = ks_args(L - ctx.alpha // 2 - 1)
     n0 = ctx.n_q0
     lam = a[:, :, :n0].contiguous()
-    k = torch.randint(0, n0 + 1, (B, 2, N), device=a.device)
+    k = torch.randint(0, n0 + 1, (B, 2, N), dtype=torch.int32,
+                      device=a.device)
     modraise = (lam, None, None, None,
                 random_residues(qall[:L], (1, n0), 1)[..., 0], q, rinv, k,
                 dv["r1"][:L])
@@ -574,26 +597,23 @@ def check_limb_kernels(ctx, path: str) -> dict:
         (lambda c=c: ma.base_conv(*c), lambda c=c: ma.base_conv_plain(*c))
         for c in cases],
         lambda: ma.base_conv(*top), lambda: ma.base_conv_plain(*top),
-        *conv_cost(limb_cuda.conv_shape(top[0], top[4], top[3], None)))
+        *conv_cost(limb_cuda.conv_shape(top[0], top[4], top[3], None),
+                   top[0].element_size()))
     del mid, modraise, moddown, cp, lam, cases
 
     y = random_residues(qt.reshape(-1), (B, D), N)
-    main_dtype = torch.int32 if boot else torch.int64
-    keys = {dt: [random_residues(qall, (ctx.dnum, 2), N).to(dt)
-                 for _ in range(3)] for dt in (torch.int32, torch.int64)}
+    keys = [random_residues(qall, (ctx.dnum, 2), N) for _ in range(3)]
     perm = galois_perms(N, (1, 2, 3), a.device)
-    cases = []
-    for dt, ks in keys.items():
-        cases.append((lambda ks=ks: ma.ks_mac(y, ks[0], L, qt, rt),
-                      lambda ks=ks: ma.ks_mac_plain(y, ks[0], L, qt, rt)))
-        cases.append((lambda ks=ks: ma.ks_mac(y, ks, L, qt, rt, perm),
-                      lambda ks=ks: ma.ks_mac_plain(y, ks, L, qt, rt, perm)))
-    key = keys[main_dtype][0]
+    key = keys[0]
     res["ks_mac"] = measure(
-        "ks_mac", cases, lambda: ma.ks_mac(y, key, L, qt, rt),
+        "ks_mac", [(lambda: ma.ks_mac(y, key, L, qt, rt),
+                    lambda: ma.ks_mac_plain(y, key, L, qt, rt)),
+                   (lambda: ma.ks_mac(y, keys, L, qt, rt, perm),
+                    lambda: ma.ks_mac_plain(y, keys, L, qt, rt, perm))],
+        lambda: ma.ks_mac(y, key, L, qt, rt),
         lambda: ma.ks_mac_plain(y, key, L, qt, rt),
-        *mac_cost(limb_cuda.mac_shape(y, [key], L, None)))
-    del y, keys, cases, key
+        *mac_cost(limb_cuda.mac_shape(y, [key], L, None), y.element_size()))
+    del y, keys, key
     if boot:
         cts = [random_residues(qall[:L], (B, 2), N) for _ in range(8)]
         pts = random_residues(qall[:L], (8,), N)
@@ -602,7 +622,9 @@ def check_limb_kernels(ctx, path: str) -> dict:
                           lambda: ma.diag_mac_plain(cts, pts, q, rinv))],
             lambda: ma.diag_mac(cts, pts, q, rinv),
             lambda: ma.diag_mac_plain(cts, pts, q, rinv),
-            8 * (9 * cts[0].numel() + pts.numel()), (8, B, 2, L, N))
+            pts.element_size() * (9 * cts[0].numel() + pts.numel()),
+            (8, B, 2, L, N), cts[0].numel() * (
+                8 * SLOTS_PER_PRODUCT + 2 * SLOTS_PER_GROUP_REDC))
     return res
 
 
@@ -730,6 +752,7 @@ def run_bootstrap() -> dict:
         f"reserved; output n_q={out.n_q}; launches {launches}")
     log("bootstrap profile:", json.dumps(prof))
     require_launches("bootstrap", launches, kern)
+    require_int32("Bootstrap.fn's output", out.data)
     time_main_shapes(ctx, kern, shapes)
     if out.n_q != ctx.L - 2 * bt.levels or out.n_q != boot.n_out:
         raise SystemExit(f"bootstrap output at {out.n_q} limbs, not "
@@ -794,6 +817,7 @@ def run_head() -> dict:
         f"peak {peak / 2**30:.2f} GiB, output n_q={out.n_q}, "
         f"launches {launches}")
     require_launches("head", launches, kern)
+    require_int32("the head's output", out.data)
     time_main_shapes(head.ctx, kern, shapes)
 
     got = head.decode(out)
@@ -867,6 +891,7 @@ def run_layer() -> dict:
         f"n_q={out.n_q}; launches {launches}; by stage (s): "
         f"{json.dumps(stages)}")
     require_launches("layer", launches, kern)
+    require_int32("the layer's output", out.data)
     time_main_shapes(layer.ctx, kern, shapes)
 
     got = layer.decode(out)
@@ -905,6 +930,7 @@ def checkpoint(model, ct, i: int) -> dict:
         back, idx = model.load_state(path)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t
+        require_int32(f"layer {i}'s checkpoint, reloaded", back.data)
         same = (idx == i and back.scale == ct.scale
                 and back.data.device == ct.data.device
                 and torch.equal(back.data, ct.data))
@@ -962,6 +988,7 @@ def run_model() -> dict:
     def on_layer(i, ct):
         torch.cuda.synchronize()
         secs = time.perf_counter() - mark[0]
+        require_int32(f"layer {i}'s output, handed to on_layer", ct.data)
         rec = {"s": secs,
                "refresh_s": sum(r[3] for r in model.refresh_log[
                    n_ref * i:n_ref * (i + 1)]),

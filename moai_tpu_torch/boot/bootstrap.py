@@ -161,9 +161,9 @@ class Bootstrapper:
         n0, L = ctx.n_q0, ctx.L
         primes = ctx.q_primes
         q0 = ctx.q0_product
-        hatinv = np.empty(n0, np.int64)
-        hat_mm = np.empty((n0, L), np.int64)
-        q0_mm = np.empty(L, np.int64)
+        hatinv = np.empty(n0, np.int32)
+        hat_mm = np.empty((n0, L), np.int32)
+        q0_mm = np.empty(L, np.int32)
         for i in range(n0):
             qi = primes[i]
             hat = q0 // qi
@@ -194,7 +194,7 @@ class Bootstrapper:
         lam = ma.from_mont(ma.mont_mul(c, self._mr_hatinv, q0v, rinv0),
                            q0v, rinv0)                     # true, [..,P,n0,N]
         f = torch.sum(lam.to(torch.float32) * self._mr_qinv_f, dim=-2)
-        k = torch.round(f).to(torch.int64)                 # [..., P, N]
+        k = torch.round(f).to(torch.int32)                 # [..., P, N]
         # base conversion of lam to all L limbs, less k * q0
         qL, rinvL = ev._q(L), ev._rinv(L)
         acc = ma.base_conv(lam, None, None, None, self._mr_hat_mm[None], qL,
@@ -207,7 +207,7 @@ class Bootstrapper:
         if self._imono is None:
             ctx = self.ctx
             N = ctx.cfg.N
-            coeffs = torch.zeros((ctx.L, N), dtype=torch.int64,
+            coeffs = torch.zeros((ctx.L, N), dtype=torch.int32,
                                  device=ctx.device)
             coeffs[:, N // 2] = ctx.dev["r1"][:ctx.L]     # Montgomery 1
             self._imono = ntt(coeffs, self.ev.tbd, limb_slice=(0, ctx.L))

@@ -13,7 +13,8 @@ Plaintext diagonals.  The JAX package encodes each diagonal into NTT
 residues where it is used (as jit constants, or collected once by
 ``Bootstrapper.collect_lt``).  Here ``encode_diagonals`` rounds each
 pre-rotated diagonal's coefficients once on the host and keeps them on the
-device as one int64 vector [N]; each use turns a giant step's diagonals
+device as one int64 vector [N] (signed coefficients, not residues); each
+use turns a giant step's diagonals
 into residues at the ciphertext's level and runs one forward NTT over them
 (on a CUDA tensor, the hand-written kernel).  A coefficient vector reaching
 2^62 keeps its exact standard residues over the whole chain instead (the
@@ -71,8 +72,8 @@ def encode_diagonals(ctx, encoder: Encoder, diags: dict, scale: float,
                      alpha: float | None = None) -> dict:
     """Round every diagonal of one level, pre-rotated by -gi for its giant
     step (Halevi-Shoup) and times ``alpha`` when given, at ``scale``:
-    {(gi, d): int64 coefficients [N], or standard residues [L, N] where a
-    coefficient reaches 2^62}, on the context's device."""
+    {(gi, d): int64 coefficients [N], or int32 standard residues [L, N]
+    where a coefficient reaches 2^62}, on the context's device."""
     _, groups = _giant_groups(diags)
     out = {}
     for gi, ds in groups.items():
@@ -82,7 +83,7 @@ def encode_diagonals(ctx, encoder: Encoder, diags: dict, scale: float,
             if np.abs(rounded).max() < 2 ** 62:
                 host = rounded.astype(np.int64)
             else:
-                host = encoder.residues(rounded, ctx.L).astype(np.int64)
+                host = encoder.residues(rounded, ctx.L).view(np.int32)
             out[(gi, d)] = torch.from_numpy(host).to(ctx.device)
     return out
 
@@ -91,8 +92,8 @@ def diagonal_plaintexts(ctx, stored: list, n_q: int) -> torch.Tensor:
     """Encoded diagonals (``encode_diagonals``) at level n_q: residues,
     Montgomery form and one batched forward NTT -> [len(stored), n_q, N]."""
     q = ctx.dev["q"][:n_q].reshape(-1, 1)
-    res = torch.stack([s.remainder(q) if s.dim() == 1 else s[:n_q]
-                       for s in stored])
+    res = torch.stack([s.remainder(q).to(torch.int32) if s.dim() == 1
+                       else s[:n_q] for s in stored])
     return residues_to_ntt(ctx, res, 0, n_q)
 
 

@@ -1,4 +1,4 @@
-"""Ciphertext/Plaintext containers over int64 tensors.
+"""Ciphertext/Plaintext containers over int32 residue tensors.
 
 Port of ``moai_tpu/ciphertext.py``.  Data is one tensor in Montgomery form:
 

@@ -1,12 +1,12 @@
 """Carry the JAX package's objects over to this one.
 
-The JAX package keeps residues as uint32 arrays; this package keeps the same
-values in int64 tensors.  Each function takes one of its objects (any
-object with the same fields; arrays are read with ``np.asarray``, so jax
-arrays and numpy arrays both work) and returns the counterpart here, on
-``device`` (CUDA unless the caller asks for the CPU, as every entry point
-of this package).  Weights are float numpy in both packages; only their
-container type changes.
+The JAX package keeps residues as uint32 arrays; this package keeps the
+same values (below 2^30) in int32 tensors.  Each function takes one of its
+objects (any object with the same fields; arrays are read with
+``np.asarray``, so jax arrays and numpy arrays both work) and returns the
+counterpart here, on ``device`` (CUDA unless the caller asks for the CPU,
+as every entry point of this package).  Weights are float numpy in both
+packages; only their container type changes.
 """
 
 from __future__ import annotations
@@ -22,9 +22,12 @@ from .params import resolve_device
 
 
 def tensor(a, device="cuda") -> torch.Tensor:
-    """uint32 residues (any array) -> int64 tensor on ``device``."""
-    return torch.from_numpy(np.asarray(a).astype(np.int64)).to(
-        resolve_device(device))
+    """uint32 residues (any array) -> int32 tensor on ``device``, after
+    checking that every value lies in [0, 2^31)."""
+    a = np.asarray(a)
+    if a.size and (a.min() < 0 or a.max() >= 1 << 31):
+        raise ValueError("residues outside [0, 2^31)")
+    return torch.from_numpy(a.astype(np.int32)).to(resolve_device(device))
 
 
 def ciphertext(ct, device="cuda") -> Ciphertext:

@@ -17,22 +17,26 @@
 //   moai_diag_mac  <- the giant step's sum of multiply_plain + add_mod in
 //                     apply_diagonals (moai_tpu/boot/linear.py:59).
 //
-// Residues are int64 lanes holding the JAX package's uint32 Montgomery
+// Residues are int32 lanes holding the JAX package's uint32 Montgomery
 // values (x * 2^32 mod q, q an odd prime below 2^30).  Every kernel writes
 // the canonical residue in [0, q), so it equals the torch ops it replaces
 // (moai_tpu_torch/mod_arith.py, the *_plain functions) bit for bit.
 //
-// Bound: memory.  Each int64 input is read once and each output written
-// once at 3.35 TB/s; the arithmetic is a few 32- and 64-bit integer
-// multiplies per element, below the card's integer rate (base_conv, with
-// up to 13 products per output, comes closest).  What the design does
-// about it:
+// Bound: memory for limb_ew, ks_mac and diag_mac (each int32 input read
+// once and each output written once at 3.35 TB/s; a few 32x32 -> 64-bit
+// multiplies per element, far below the card's integer rate).  base_conv's
+// decomposition, with up to 13 products and a two-step REDC per output,
+// needs more INT32 issue slots than its 4-byte lanes need bytes: integer
+// bound.  What the design does about it:
 // - Reduction is Montgomery's REDC with R = 2^32 (one 32x32 low multiply,
 //   one 32x32 -> 64 multiply-add, a shift), with no division on any
-//   residue in range; -q^-1 mod 2^32 comes from four Newton steps on q, so
-//   no table of it is read.  The elementwise ops take any int64 input, as
-//   the torch ops do: operands past the residues' range (never on the
-//   scheme's paths) take a branch with the int64 remainder.
+//   residue in range; -q^-1 mod 2^32 comes from four Newton steps on q,
+//   once per row of a limb, so no table of it is read.
+// - limb_ew takes a row's q (and -q^-1) once, moves four residues per
+//   16-byte load and store, keeps two such loads of each operand in
+//   flight, and reads an operand that is constant along a row once per
+//   row.  Its inputs are int32 in [0, 2^31); a result past [0, 2q) (never
+//   from canonical operands) takes a branch with the remainder.
 // - ks_mac and diag_mac add up to four products of residues in 64 bits
 //   (each below 2^30 * q, four below q * 2^32, REDC's input range) before
 //   one REDC, and keep a canonical 32-bit sum across groups.
@@ -44,11 +48,11 @@
 //   coefficient's key values and walks the rows of y), reads the key where
 //   it lies (no copy of the active limbs), and gathers y through a
 //   rotation's permutation instead of materialising the rotated digits.
-// - diag_mac keeps a coefficient's diagonals in registers and walks the
-//   ciphertexts' rows, so each diagonal and each rotated ciphertext is read
-//   once per giant step.
-// - Loads are coalesced, consecutive threads on consecutive coefficients;
-//   each elementwise thread keeps four loads in flight.
+// - diag_mac keeps a thread's 4 (or, past 8 terms, 2 or 1) coefficients of
+//   every diagonal in registers (one 16-, 8- or 4-byte load each) and walks
+//   the ciphertexts' rows, so each diagonal and each rotated ciphertext is
+//   read once per giant step.
+// - Loads are coalesced, consecutive threads on consecutive coefficients.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,15 +71,14 @@ constexpr int kMaxRot = 64;    // rotations of one ks_mac launch
 constexpr int kMaxTerms = 32;  // diagonals of one diag_mac launch
 
 struct Operand {
-  const void* ptr;             // null: every element is `value`
+  const int* ptr;              // null: every element is `value`
   i64 value;
   i64 stride[kMaxDims];        // in elements, 0 along broadcast dims
-  int is32;                    // int32 elements, else int64
 };
 
 struct EwArgs {
   Operand in[kOperands];
-  i64* out;                    // contiguous, the broadcast shape
+  int* out;                    // contiguous, the broadcast shape
   i64 size[kMaxDims];          // the collapsed shape, innermost last
   i64 rows;                    // product of all but the innermost size
   int ndim;
@@ -83,39 +86,39 @@ struct EwArgs {
 };
 
 struct BaseConvArgs {
-  const i64* x;                   // [B, S, N]
-  const i64* src_q;               // [S]
-  const i64* hatinv;              // [S] or null
-  const i64* hat;                 // hat[d * hs0 + a * hs1 + t * hs2]
+  const int* x;                   // [B, S, N]
+  const int* src_q;               // [S]
+  const int* hatinv;              // [S] or null
+  const int* hat;                 // hat[d * hs0 + a * hs1 + t * hs2]
   i64 hs0, hs1, hs2;
-  const i64* tq;                  // tq[t * tqs]
+  const int* tq;                  // tq[t * tqs]
   i64 tqs;
-  const i64* k;                   // [B, N] or null
-  const i64* kq;                  // kq[t * kqs]
+  const int* k;                   // [B, N] or null
+  const int* kq;                  // kq[t * kqs]
   i64 kqs;
-  i64* out;                       // [B, D, T, N]
+  int* out;                       // [B, D, T, N]
   i64 B;
   int S, N, D, A, T;
 };
 
 struct KsMacArgs {
-  const i64* y;                   // [B, D, T, N]
+  const int* y;                   // [B, D, T, N]
   const i64* perm;                // [R, N] or null (R == 1)
-  const void* key[kMaxRot];       // each [>= D, 2, KL, N]
-  const i64* tq;                  // tq[t * tqs]
+  const int* key[kMaxRot];        // each [>= D, 2, KL, N]
+  const int* tq;                  // tq[t * tqs]
   i64 tqs;
-  i64* out;                       // [2, R, B, T, N]
+  int* out;                       // [2, R, B, T, N]
   i64 B;
-  int key32, KL, split, kgap;
+  int KL, split, kgap;
   int R, D, T, N;
 };
 
 struct DiagMacArgs {
-  const i64* ct[kMaxTerms];       // each [B, L, N]
-  const i64* pt;                  // [terms, L, N]
-  const i64* q;                   // q[l * qs]
+  const int* ct[kMaxTerms];       // each [B, L, N]
+  const int* pt;                  // [terms, L, N]
+  const int* q;                   // q[l * qs]
   i64 qs;
-  i64* out;                       // [B, L, N]
+  int* out;                       // [B, L, N]
   i64 B;
   int terms, L, N;
 };
@@ -142,44 +145,11 @@ __device__ __forceinline__ u64 redc(u64 T, uint32_t q, uint32_t qn) {
   return (T + (u64)m * q) >> 32;
 }
 
-// x mod q as torch's remainder computes it (floored: the sign of q).
-__device__ __forceinline__ i64 floor_mod(i64 x, i64 q) {
-  const i64 r = x % q;
-  return r < 0 ? r + q : r;
-}
-
-// s mod q, floored, for any int64 s; s in [-q, 2q) takes no division.
-__device__ __forceinline__ i64 reduce(i64 s, i64 q) {
-  if (s >= q) s -= q;
-  else if (s < 0) s += q;
-  return (u64)s < (u64)q ? s : floor_mod(s, q);
-}
-
-// a * b * 2^-32 mod q, canonical, equal to mod_arith.mont_mul_plain for
-// any int64 a, b (its int64 product wraps as torch's does).
-__device__ __forceinline__ i64 mont_mul(i64 a, i64 b, uint32_t q, uint32_t qn) {
-  const u64 ua = (u64)a, ub = (u64)b;
-  if ((ua | ub) < (1ull << 32)) {
-    const u64 T = ua * ub;
-    if (T < (1ull << 63)) {
-      u64 t = redc(T, q, qn);            // < 2^31 + q
-      if (t >= q) t -= q;
-      return t < q ? (i64)t : (i64)(t % q);
-    }
-  }
-  const u64 t = redc((u64)floor_mod((i64)(ua * ub), q), q, qn);   // < q
-  return (i64)(t >= q ? t - q : t);
-}
-
-// x * 2^-32 mod q, canonical, equal to mod_arith.from_mont_plain
-// ((x * rinv) % q in int64) for any int64 x.
-__device__ __forceinline__ i64 from_mont(i64 x, uint32_t q, uint32_t qn) {
-  if ((u64)x < (1ull << 32)) {           // x * rinv < 2^63: exact in int64
-    const u64 t = redc((u64)x, q, qn);   // < q + 1
-    return (i64)(t >= q ? t - q : t);
-  }
-  const u64 rinv = ((u64)q * qn + 1) >> 32;   // 2^-32 mod q, canonical
-  return floor_mod((i64)((u64)x * rinv), q);
+// t mod q for any t < 2^32: one subtract below 2q, else the remainder
+// (never taken on canonical operands).
+__device__ __forceinline__ uint32_t reduce(uint32_t t, uint32_t q) {
+  t = t >= q ? t - q : t;
+  return t < q ? t : t % q;
 }
 
 // A canonical sum of canonical residues: acc + t mod q, both below q.
@@ -195,25 +165,61 @@ __device__ __forceinline__ uint32_t redc_canon(u64 T, uint32_t q, uint32_t qn) {
 }
 
 // ---------------------------------------------------------------------------
-// limb_ew: out = op(a, b, c) mod q over the broadcast of its operands
+// limb_ew: out = op(a, b, c) mod q over the broadcast of its operands,
+// each int32 in [0, 2^31); equal to the plain versions on that domain.
+//
+// A block takes a run of kEwSpan elements of one row (a run of the
+// innermost collapsed dim, N coefficients of one limb on the scheme's
+// paths) and walks the rows.  Per row it takes q and -q^-1 once, and
+// reads an operand that is constant along the row (a per-limb or
+// per-column constant, or a Python int) once.  Where the row is a
+// multiple of four long, q is constant along it, and every other operand
+// is contiguous along it from a 16-byte boundary, each thread moves four
+// residues per 16-byte load and store, kEwVecs loads of each operand in
+// flight; any other row takes the scalar path, with q (and -q^-1) per
+// element where q varies along the row.
 // ---------------------------------------------------------------------------
 
 enum EwOp { kAdd = 0, kSub = 1, kNeg = 2, kMul = 3, kFromMont = 4, kSubMul = 5 };
 
 constexpr int kEwThreads = 256;
-constexpr int kEwVec = 4;      // elements (loads in flight) per thread
+constexpr int kEwVecs = 2;                            // 16-byte loads in flight
+constexpr int kEwSpan = kEwThreads * kEwVecs * 4;     // elements of a block's run
 
-
-
-__device__ __forceinline__ i64 load(const Operand& o, i64 off) {
-  if (!o.ptr) return o.value;
-  return o.is32 ? (i64)((const int*)o.ptr)[off] : ((const i64*)o.ptr)[off];
+// (x - y) mod q, floored, for x, y in [0, 2^31): canonical operands stay
+// in the first line.
+__device__ __forceinline__ uint32_t sub_mod(uint32_t x, uint32_t y, uint32_t q) {
+  uint32_t d = x - y;
+  if ((int)d < 0) d += q;
+  if (d < q) return d;
+  const i64 r = ((i64)x - (i64)y) % (i64)q;
+  return (uint32_t)(r < 0 ? r + q : r);
 }
 
+// x * y * 2^-32 mod q, canonical, for x, y in [0, 2^31): one 32x32 -> 64
+// product and one REDC (below 2^30 + q).
+__device__ __forceinline__ uint32_t mont_mul(uint32_t x, uint32_t y, uint32_t q, uint32_t qn) {
+  return reduce((uint32_t)redc((u64)x * y, q, qn), q);
+}
+
+template <int OP>
+__device__ __forceinline__ uint32_t ew(uint32_t x, uint32_t y, uint32_t c, uint32_t q,
+                                       uint32_t qn) {
+  if constexpr (OP == kAdd) return reduce(x + y, q);
+  if constexpr (OP == kSub) return sub_mod(x, y, q);
+  if constexpr (OP == kNeg) return sub_mod(0u, x, q);
+  if constexpr (OP == kMul) return mont_mul(x, y, q, qn);
+  if constexpr (OP == kFromMont) return reduce((uint32_t)redc(x, q, qn), q);
+  return mont_mul(sub_mod(x, y, q), c, q, qn);       // kSubMul
+}
+
+template <int OP>
 __global__ void __launch_bounds__(kEwThreads) limb_ew(const __grid_constant__ EwArgs a) {
+  constexpr int nin = OP == kNeg || OP == kFromMont ? 1 : OP == kSubMul ? 3 : 2;
   const int nd = a.ndim;
   const i64 inner = a.size[nd - 1];
-  const i64 j0 = (i64)blockIdx.x * (kEwThreads * kEwVec) + threadIdx.x;
+  const bool q_row = !a.in[3].ptr || a.in[3].stride[nd - 1] == 0;
+  const i64 run = (i64)blockIdx.x * kEwSpan;
   for (i64 row = blockIdx.y; row < a.rows; row += gridDim.y) {
     i64 base[kOperands] = {0, 0, 0, 0};
     uint32_t r = (uint32_t)row;           // rows < 2^31 (the wrapper checks)
@@ -224,33 +230,60 @@ __global__ void __launch_bounds__(kEwThreads) limb_ew(const __grid_constant__ Ew
 #pragma unroll
       for (int k = 0; k < kOperands; ++k) base[k] += i * a.in[k].stride[d];
     }
-    i64 v[kOperands][kEwVec];
+    // the row's constants: q, -q^-1, and each operand constant along it
+    uint32_t cst[kOperands];
+    const int* p[3];
+    bool vec = q_row && (inner & 3) == 0;
 #pragma unroll
-    for (int e = 0; e < kEwVec; ++e) {
-      const i64 j = j0 + e * kEwThreads;
-      if (j < inner) {
-#pragma unroll
-        for (int k = 0; k < kOperands; ++k)
-          v[k][e] = load(a.in[k], base[k] + j * a.in[k].stride[nd - 1]);
+    for (int k = 0; k < kOperands; ++k) {
+      const Operand& o = a.in[k];
+      const bool along = o.ptr && o.stride[nd - 1] != 0;
+      cst[k] = !o.ptr ? (uint32_t)o.value : along ? 0u : (uint32_t)o.ptr[base[k]];
+      if (k < 3) {
+        p[k] = along ? o.ptr + base[k] : nullptr;
+        if (k < nin && along)
+          vec = vec && o.stride[nd - 1] == 1 && ((uintptr_t)p[k] & 15) == 0;
       }
     }
+    const uint32_t q = cst[3], qn = q_row ? neg_qinv(q) : 0u;
+    int* out = a.out + row * inner;
+    if (vec) {
+      uint4 v[3][kEwVecs];
 #pragma unroll
-    for (int e = 0; e < kEwVec; ++e) {
-      const i64 j = j0 + e * kEwThreads;
-      if (j >= inner) continue;
-      const i64 x = v[0][e], y = v[1][e], q = v[3][e];
-      i64 res;
-      switch (a.op) {
-        case kAdd: res = reduce((i64)((u64)x + (u64)y), q); break;
-        case kSub: res = reduce((i64)((u64)x - (u64)y), q); break;
-        case kNeg: res = reduce((i64)(0ull - (u64)x), q); break;
-        case kMul: res = mont_mul(x, y, (uint32_t)q, neg_qinv((uint32_t)q)); break;
-        case kFromMont: res = from_mont(x, (uint32_t)q, neg_qinv((uint32_t)q)); break;
-        default:                         // kSubMul: (x - y mod q) * c
-          res = mont_mul(reduce((i64)((u64)x - (u64)y), q), v[2][e], (uint32_t)q,
-                         neg_qinv((uint32_t)q));
+      for (int e = 0; e < kEwVecs; ++e) {
+        const i64 j = run + (i64)(e * kEwThreads + threadIdx.x) * 4;
+        if (j < inner) {
+#pragma unroll
+          for (int k = 0; k < nin; ++k)
+            v[k][e] = p[k] ? *(const uint4*)(p[k] + j)
+                           : make_uint4(cst[k], cst[k], cst[k], cst[k]);
+        }
       }
-      a.out[row * inner + j] = res;
+#pragma unroll
+      for (int e = 0; e < kEwVecs; ++e) {
+        const i64 j = run + (i64)(e * kEwThreads + threadIdx.x) * 4;
+        if (j < inner) {
+          const uint4 x = v[0][e];
+          const uint4 y = nin > 1 ? v[1][e] : x, c = nin > 2 ? v[2][e] : x;
+          *(uint4*)(out + j) = make_uint4(ew<OP>(x.x, y.x, c.x, q, qn), ew<OP>(x.y, y.y, c.y, q, qn),
+                                          ew<OP>(x.z, y.z, c.z, q, qn), ew<OP>(x.w, y.w, c.w, q, qn));
+        }
+      }
+    } else {
+      for (int e = 0; e < kEwVecs * 4; ++e) {
+        const i64 j = run + e * kEwThreads + threadIdx.x;
+        if (j >= inner) break;
+        uint32_t v[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          v[k] = k < nin && p[k] ? (uint32_t)p[k][j * a.in[k].stride[nd - 1]] : cst[k];
+        uint32_t qe = q, qne = qn;
+        if (!q_row) {
+          qe = (uint32_t)a.in[3].ptr[base[3] + j * a.in[3].stride[nd - 1]];
+          qne = neg_qinv(qe);
+        }
+        out[j] = (int)ew<OP>(v[0], v[1], v[2], qe, qne);
+      }
     }
   }
 }
@@ -270,7 +303,7 @@ __global__ void __launch_bounds__(kEwThreads) limb_ew(const __grid_constant__ Ew
 // once by two REDC steps (S * 2^-64, in [0, q]) against hat * 2^32 mod q,
 // which the block computes once per digit into shared memory.  An input
 // becomes lam by one REDC against hatinv * 2^-32, also computed once per
-// block.  Outputs go out as one 16-byte store per target and thread.
+// block.  Outputs go out as one 8-byte store per target and thread.
 // ---------------------------------------------------------------------------
 
 constexpr int kConvThreads = 128;
@@ -290,13 +323,18 @@ __device__ __forceinline__ uint32_t redc2_canon(u64 S, uint32_t q, uint32_t qn) 
   return s2 >= q ? s2 - q : s2;
 }
 
-// lam = from_mont(mont_mul(v, hatinv)) mod q, as the torch ops compute it.
-// Where their int64 product is exact (v < 2^32, hatinv < 2^31: c.w) this
-// is one REDC of v * (hatinv * 2^-32 mod q) (c.z), below 2q; other
-// operands take the elementwise ops' general path.
-__device__ __forceinline__ uint32_t to_lam(i64 v, uint4 c, const i64* hatinv) {
-  if (c.w && (u64)v < (1ull << 32)) return redc_canon((u64)v * c.z, c.x, c.y);
-  return (uint32_t)from_mont(mont_mul(v, *hatinv, c.x, c.y), c.x, c.y);
+// lam = from_mont(mont_mul(v, hatinv)) mod q, as the torch ops compute it:
+// one REDC of v * (hatinv * 2^-32 mod q) (c.z), below 2q for any v in
+// [0, 2^31).
+__device__ __forceinline__ uint32_t to_lam(int v, uint4 c) {
+  return redc_canon((u64)(uint32_t)v * c.z, c.x, c.y);
+}
+
+// k * w * 2^-32 mod q, canonical, for any int32 k (ModRaise's multiple of
+// q0, negative k taken modulo q first) and w < q.
+__device__ __forceinline__ uint32_t mont_mul_k(int k, uint32_t w, uint32_t q, uint32_t qn) {
+  const uint32_t u = k >= 0 ? (uint32_t)k : (uint32_t)(k % (int)q + (int)q);
+  return mont_mul(u, w, q, qn);
 }
 
 // Up to MAXC inputs a digit (a compile-time bound, so lam stays in
@@ -312,7 +350,7 @@ __global__ void __launch_bounds__(kConvThreads, 6) base_conv(const __grid_consta
   uint32_t* s_kq = s_r2 + Tp;
   uint32_t* s_hat = s_kq + Tp;        // [cnt][Tp]: hat * 2^32 mod q, 0 past T
   uint4* s_src = (uint4*)(s_hat + a.A * Tp);   // [cnt]: q, -q^-1, hatinv
-                                               // * 2^-32, lean path ok
+                                               // * 2^-32 (w unused)
   for (int t = threadIdx.x; t < Tp; t += kConvThreads) {
     const uint32_t q = t < a.T ? (uint32_t)a.tq[t * a.tqs] : 1u;
     const uint32_t r1 = (0u - q) % q;                 // 2^32 mod q
@@ -343,31 +381,30 @@ __global__ void __launch_bounds__(kConvThreads, 6) base_conv(const __grid_consta
     if (a.hatinv) {
       for (int i = threadIdx.x; i < cnt; i += kConvThreads) {
         const uint32_t q = (uint32_t)a.src_q[lo + i], qn = neg_qinv(q);
-        const i64 hi = a.hatinv[lo + i];
-        s_src[i] = make_uint4(q, qn, (uint32_t)from_mont(hi, q, qn), (u64)hi < (1ull << 31));
+        s_src[i] = make_uint4(q, qn, redc_canon((uint32_t)a.hatinv[lo + i], q, qn), 0u);
       }
     }
     __syncthreads();
     if (n >= a.N) continue;
     uint32_t lam[MAXC][2];
-    const i64* xrow = a.x + (b * a.S + lo) * a.N + n;
+    const int* xrow = a.x + (b * a.S + lo) * a.N + n;
 #pragma unroll
     for (int i = 0; i < MAXC; ++i) {
       if (i < cnt) {
-        const longlong2 v = *(const longlong2*)(xrow + (i64)i * a.N);
+        const int2 v = *(const int2*)(xrow + (i64)i * a.N);
         if (a.hatinv) {
           const uint4 c = s_src[i];
-          lam[i][0] = to_lam(v.x, c, a.hatinv + lo + i);
-          lam[i][1] = to_lam(v.y, c, a.hatinv + lo + i);
+          lam[i][0] = to_lam(v.x, c);
+          lam[i][1] = to_lam(v.y, c);
         } else {
           lam[i][0] = (uint32_t)v.x;
           lam[i][1] = (uint32_t)v.y;
         }
       }
     }
-    longlong2 kv = make_longlong2(0, 0);
-    if (a.k) kv = *(const longlong2*)(a.k + b * a.N + n);
-    i64* out = a.out + (bd * a.T) * a.N + n;
+    int2 kv = make_int2(0, 0);
+    if (a.k) kv = *(const int2*)(a.k + b * a.N + n);
+    int* out = a.out + (bd * a.T) * a.N + n;
     for (int t0 = 0; t0 < a.T; t0 += kConvTile) {
       const uint4 q4 = *(const uint4*)(s_q + t0);
       const uint4 qn4 = *(const uint4*)(s_qn + t0);
@@ -407,12 +444,12 @@ __global__ void __launch_bounds__(kConvThreads, 6) base_conv(const __grid_consta
           uint32_t r0 = res[j][0], r1 = res[j][1];
           if (a.k) {
             const uint32_t q = qs[j], kq = s_kq[t];
-            const uint32_t k0 = (uint32_t)mont_mul(kv.x, kq, q, qns[j]);
-            const uint32_t k1 = (uint32_t)mont_mul(kv.y, kq, q, qns[j]);
+            const uint32_t k0 = mont_mul_k(kv.x, kq, q, qns[j]);
+            const uint32_t k1 = mont_mul_k(kv.y, kq, q, qns[j]);
             r0 = r0 >= k0 ? r0 - k0 : r0 + (q - k0);
             r1 = r1 >= k1 ? r1 - k1 : r1 + (q - k1);
           }
-          *(longlong2*)(out + (i64)t * a.N) = make_longlong2(r0, r1);
+          *(int2*)(out + (i64)t * a.N) = make_int2((int)r0, (int)r1);
         }
       }
     }
@@ -433,11 +470,6 @@ __global__ void __launch_bounds__(kConvThreads, 6) base_conv(const __grid_consta
 // ---------------------------------------------------------------------------
 
 constexpr int kMacThreads = 256;
-
-
-__device__ __forceinline__ uint32_t load_key(const void* p, int is32, i64 off) {
-  return is32 ? (uint32_t)((const int*)p)[off] : (uint32_t)((const i64*)p)[off];
-}
 
 // The canonical sums of both key rows' products, REDC'd in groups of four.
 template <int MAXD>
@@ -477,31 +509,31 @@ __global__ void __launch_bounds__(kMacThreads) ks_mac(const __grid_constant__ Ks
     const uint32_t q = (uint32_t)a.tq[t * a.tqs], qn = neg_qinv(q);
     const int src = a.perm ? (int)a.perm[(i64)r * a.N + n] : n;
     const int kl = t < a.split ? t : t + a.kgap;
-    const void* key = a.key[r];
+    const int* key = a.key[r];
     const i64 koff = (i64)kl * a.N + n;
     uint32_t k0[MAXD], k1[MAXD], yv[MAXD];
-    const i64* yp = a.y + (i64)t * a.N + src;
+    const int* yp = a.y + (i64)t * a.N + src;
 #pragma unroll
     for (int d = 0; d < MAXD; ++d) {
       if (d < a.D) {
-        k0[d] = load_key(key, a.key32, (2 * d) * plane + koff);
-        k1[d] = load_key(key, a.key32, (2 * d + 1) * plane + koff);
+        k0[d] = (uint32_t)key[(2 * d) * plane + koff];
+        k1[d] = (uint32_t)key[(2 * d + 1) * plane + koff];
         yv[d] = (uint32_t)yp[d * dstep];
       }
     }
-    i64* out = a.out + ((i64)r * a.B * a.T + t) * a.N + n;
+    int* out = a.out + ((i64)r * a.B * a.T + t) * a.N + n;
     for (i64 b = 0; b < a.B; ++b) {
       uint32_t yn[MAXD];
       if (b + 1 < a.B) {
-        const i64* ynp = yp + (b + 1) * ystep;
+        const int* ynp = yp + (b + 1) * ystep;
 #pragma unroll
         for (int d = 0; d < MAXD; ++d)
           if (d < a.D) yn[d] = (uint32_t)ynp[d * dstep];
       }
       uint32_t acc0, acc1;
       mac_row<MAXD>(yv, k0, k1, a.D, q, qn, acc0, acc1);
-      out[b * dstep] = acc0;
-      out[half + b * dstep] = acc1;
+      out[b * dstep] = (int)acc0;
+      out[half + b * dstep] = (int)acc1;
 #pragma unroll
       for (int d = 0; d < MAXD; ++d) yv[d] = yn[d];
     }
@@ -510,36 +542,87 @@ __global__ void __launch_bounds__(kMacThreads) ks_mac(const __grid_constant__ Ks
 
 // ---------------------------------------------------------------------------
 // diag_mac: out[b, l, n] = sum_j ct_j[b, l, n] * pt[j, l, n] * 2^-32 mod q[l]
+//
+// A block row is one limb l (its q and -q^-1 taken once).  A thread owns V
+// consecutive coefficients: it loads them from each of the launch's
+// diagonals once, as one 8- or 16-byte vector, and keeps them in
+// registers while it walks the B ciphertext rows, loading each row's V
+// coefficients of every term before the arithmetic.  The term count is a
+// compile-time bound (MAXJ terms x V lanes of diagonals in registers): up
+// to 8 terms take 4 coefficients, up to 16 take 2, up to 32 take 1.
 // ---------------------------------------------------------------------------
 
-constexpr int kDiagThreads = 256;
+constexpr int kDiagThreads = 128;
 
+template <int V>
+struct Lanes {
+  uint32_t v[V];
+};
 
+template <int V>
+__device__ __forceinline__ Lanes<V> load_lanes(const int* p) {
+  Lanes<V> r;
+  if constexpr (V == 4) {
+    const uint4 t = *(const uint4*)p;
+    r.v[0] = t.x, r.v[1] = t.y, r.v[2] = t.z, r.v[3] = t.w;
+  } else if constexpr (V == 2) {
+    const uint2 t = *(const uint2*)p;
+    r.v[0] = t.x, r.v[1] = t.y;
+  } else {
+    r.v[0] = (uint32_t)*p;
+  }
+  return r;
+}
+
+template <int V>
+__device__ __forceinline__ void store_lanes(int* p, const uint32_t (&v)[V]) {
+  if constexpr (V == 4)
+    *(uint4*)p = make_uint4(v[0], v[1], v[2], v[3]);
+  else if constexpr (V == 2)
+    *(uint2*)p = make_uint2(v[0], v[1]);
+  else
+    *p = (int)v[0];
+}
+
+template <int MAXJ, int V>
 __global__ void __launch_bounds__(kDiagThreads) diag_mac(const __grid_constant__ DiagMacArgs a) {
-  const int n = blockIdx.x * kDiagThreads + threadIdx.x;
+  const int n = (blockIdx.x * kDiagThreads + threadIdx.x) * V;
   if (n >= a.N) return;
+  const i64 rows = (i64)a.L * a.N;
   for (int l = blockIdx.y; l < a.L; l += gridDim.y) {
     const uint32_t q = (uint32_t)a.q[l * a.qs], qn = neg_qinv(q);
     const i64 off = (i64)l * a.N + n;
-    const i64 rows = (i64)a.L * a.N;
-    uint32_t pt[kMaxTerms];
+    Lanes<V> pt[MAXJ];
 #pragma unroll
-    for (int j = 0; j < kMaxTerms; ++j)
-      if (j < a.terms) pt[j] = (uint32_t)a.pt[j * rows + off];
+    for (int j = 0; j < MAXJ; ++j)
+      if (j < a.terms) pt[j] = load_lanes<V>(a.pt + j * rows + off);
     for (i64 b = 0; b < a.B; ++b) {
       const i64 o = b * rows + off;
-      uint32_t acc = 0;
+      Lanes<V> ct[MAXJ];
 #pragma unroll
-      for (int j0 = 0; j0 < kMaxTerms; j0 += 4) {
+      for (int j = 0; j < MAXJ; ++j)
+        if (j < a.terms) ct[j] = load_lanes<V>(a.ct[j] + o);
+      uint32_t acc[V];
+#pragma unroll
+      for (int c = 0; c < V; ++c) acc[c] = 0;
+#pragma unroll
+      for (int j0 = 0; j0 < MAXJ; j0 += 4) {
         if (j0 < a.terms) {
-          u64 T = 0;
+          u64 T[V];
 #pragma unroll
-          for (int j = j0; j < j0 + 4; ++j)
-            if (j < a.terms) T += (u64)a.ct[j][o] * pt[j];
-          acc = add_canon(acc, redc_canon(T, q, qn), q);
+          for (int c = 0; c < V; ++c) T[c] = 0;
+#pragma unroll
+          for (int j = j0; j < j0 + 4 && j < MAXJ; ++j) {
+            if (j < a.terms) {
+#pragma unroll
+              for (int c = 0; c < V; ++c) T[c] += (u64)ct[j].v[c] * pt[j].v[c];
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < V; ++c) acc[c] = add_canon(acc[c], redc_canon(T[c], q, qn), q);
         }
       }
-      a.out[o] = acc;
+      store_lanes<V>(a.out + o, acc);
     }
   }
 }
@@ -552,9 +635,17 @@ extern "C" {
 
 int moai_limb_ew(const EwArgs* a, void* stream) {
   const i64 inner = a->size[a->ndim - 1];
-  const dim3 grid((unsigned)((inner + kEwThreads * kEwVec - 1) / (kEwThreads * kEwVec)),
-                  grid_rows(a->rows));
-  limb_ew<<<grid, kEwThreads, 0, (cudaStream_t)stream>>>(*a);
+  const dim3 grid((unsigned)((inner + kEwSpan - 1) / kEwSpan), grid_rows(a->rows));
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (a->op) {
+    case kAdd: limb_ew<kAdd><<<grid, kEwThreads, 0, s>>>(*a); break;
+    case kSub: limb_ew<kSub><<<grid, kEwThreads, 0, s>>>(*a); break;
+    case kNeg: limb_ew<kNeg><<<grid, kEwThreads, 0, s>>>(*a); break;
+    case kMul: limb_ew<kMul><<<grid, kEwThreads, 0, s>>>(*a); break;
+    case kFromMont: limb_ew<kFromMont><<<grid, kEwThreads, 0, s>>>(*a); break;
+    case kSubMul: limb_ew<kSubMul><<<grid, kEwThreads, 0, s>>>(*a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -580,8 +671,12 @@ int moai_ks_mac(const KsMacArgs* a, void* stream) {
 }
 
 int moai_diag_mac(const DiagMacArgs* a, void* stream) {
-  const dim3 grid((unsigned)((a->N + kDiagThreads - 1) / kDiagThreads), grid_rows(a->L));
-  diag_mac<<<grid, kDiagThreads, 0, (cudaStream_t)stream>>>(*a);
+  const int V = a->terms <= 8 ? 4 : a->terms <= 16 ? 2 : 1;
+  const dim3 grid((unsigned)((a->N / V + kDiagThreads - 1) / kDiagThreads), grid_rows(a->L));
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (a->terms <= 8) diag_mac<8, 4><<<grid, kDiagThreads, 0, s>>>(*a);
+  else if (a->terms <= 16) diag_mac<16, 2><<<grid, kDiagThreads, 0, s>>>(*a);
+  else diag_mac<kMaxTerms, 1><<<grid, kDiagThreads, 0, s>>>(*a);
   return (int)cudaGetLastError();
 }
 

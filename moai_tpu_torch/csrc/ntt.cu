@@ -5,17 +5,18 @@
 //   moai_ntt_inv  <- _inv_kernel (pallas_ntt.py:301), reached via intt_pallas
 // Each entry point launches two device kernels (two passes over the row).
 // Contract (that of moai_tpu.ntt.ntt/intt): each row of N residues is in
-// Montgomery form (x*2^32 mod q, q < 2^30), held in an int64 lane; the
+// Montgomery form (x*2^32 mod q, q < 2^30), held in an int32 lane; the
 // forward output index k holds the evaluation at root exponent 2k+1 of the
 // limb's psi (natural order); the Montgomery factor is preserved; the
 // inverse includes 1/N.  Every output is the canonical residue, so the
 // result is bit-identical to any other exact NTT with the same psi.
 //
-// Bound: memory.  Each residue is read once and written once as int64
-// (16 bytes); the two passes add a uint32 scratch written and read once
-// (8 bytes), so a perfect kernel moves 24 bytes per element, 2/3 of the
-// 16-byte bound.  The per-element twiddle tables (8 bytes per element per
-// limb) are shared by every row of a limb and stay in the 50 MB L2.
+// Bound: memory.  Each residue is read once and written once as int32
+// (8 bytes); the two passes add a uint32 scratch written and read once
+// (8 bytes), so a perfect two-pass kernel moves 16 bytes per element and
+// reaches at most half of the 8-byte bound.  The per-element twiddle
+// tables (8 bytes per element per limb) are shared by every row of a limb
+// and stay in the 50 MB L2.
 //
 // Design: the 4-step factorization of moai_tpu_torch/ntt.py (ntt_plain),
 // N = n1 * n2 with n1, n2 = _split(N) (128 x 256 at 2^15, 256 x 256 at
@@ -30,7 +31,7 @@
 //   uint32 scratch [row, k1, j2] in natural k1 order.
 // - Forward pass 2 (ntt_rows<false>): one block per (row, 32 consecutive
 //   k1); each is an n2-point cyclic NTT with root w, written to output
-//   index k2*n1 + k1 (32 contiguous int64 per k2).
+//   index k2*n1 + k1 (32 contiguous int32 per k2).
 // - The inverse mirrors it with the same two templates: pass 1
 //   (ntt_rows<true>) runs the inverse cyclic transforms over k2 and
 //   multiplies by psi^-((2k1+1) j2) / N (untwist and 1/N folded into the
@@ -229,9 +230,9 @@ struct Geometry {
 };
 
 // Columns pass: the n1-point negacyclic transforms of columns j2_0 ..
-// j2_0 + p of one row.  Forward (pass 1): int64 x -> Cooley-Tukey -> times
+// j2_0 + p of one row.  Forward (pass 1): int32 x -> Cooley-Tukey -> times
 // the mid twiddle -> uint32 scratch, rows in natural k1 order.  Inverse
-// (pass 2): uint32 scratch -> Gentleman-Sande -> int64 y.
+// (pass 2): uint32 scratch -> Gentleman-Sande -> int32 y.
 template <bool kInverse, typename In, typename Out>
 __global__ void __launch_bounds__(kMaxThreads)
     ntt_cols(const In* __restrict__ src, Out* __restrict__ dst, Geometry g,
@@ -275,8 +276,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // Rows pass: the n2-point cyclic transforms of scratch rows k1_0 .. k1_0 +
-// p of one row.  Forward (pass 2): uint32 scratch -> Cooley-Tukey -> int64
-// y at k2 * n1 + k1.  Inverse (pass 1): int64 x at k2 * n1 + k1 ->
+// p of one row.  Forward (pass 2): uint32 scratch -> Cooley-Tukey -> int32
+// y at k2 * n1 + k1.  Inverse (pass 1): int32 x at k2 * n1 + k1 ->
 // Gentleman-Sande -> times the inverse mid twiddle -> uint32 scratch.
 template <bool kInverse, typename In, typename Out>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -293,14 +294,14 @@ __global__ void __launch_bounds__(kMaxThreads)
   // contiguous; the tile holds j2 at position j2
   const size_t s_off = (blk.row << log_n) + ((size_t)blk.first << g.log_n2);
   auto s_at = [&](int e) { return (e & (n2 - 1)) * stride + (e >> g.log_n2); };
-  // spectral side, e = k2 * p + r: p contiguous int64 at k2 * n1 + k1_0;
+  // spectral side, e = k2 * p + r: p contiguous int32 at k2 * n1 + k1_0;
   // the tile holds k2 at position brev(k2)
   const size_t y_off = (blk.row << log_n) + blk.first;
   auto y_at = [&](int e) { return brev(e >> g.log_p, g.log_n2) * stride + (e & (p - 1)); };
   auto y_glob = [&](int e) { return (e >> g.log_p) * n1 + (e & (p - 1)); };
   const int words = 1 << (g.log_n2 + g.log_p);
   if constexpr (kInverse) {
-    const int64_t* xr = src + y_off;
+    const In* xr = src + y_off;
     uint32_t* sr = dst + s_off;
     move_tile(
         words, [&](int e) { return (uint32_t)xr[y_glob(e)]; },
@@ -313,7 +314,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         [&](int e, uint32_t v) { sr[e] = v; });
   } else {
     const uint32_t* sr = src + s_off;
-    int64_t* yr = dst + y_off;
+    Out* yr = dst + y_off;
     move_tile(
         words, [&](int e) { return sr[e]; },
         [&](int e, uint32_t v) { a[s_at(e)] = v; });
@@ -321,7 +322,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     ct_transform(a, g.log_n2, g.log_p, smem, q);
     move_tile(
         words, [&](int e) { return a[y_at(e)]; },
-        [&](int e, uint32_t v) { yr[y_glob(e)] = (int64_t)v; });
+        [&](int e, uint32_t v) { yr[y_glob(e)] = (Out)v; });
   }
 }
 
@@ -353,11 +354,11 @@ int plan(long long rows, int limbs, int log_n, bool transforms_cols, Launch* l) 
 
 }  // namespace
 
-// x, y: [rows, n] int64, row r holds limb r % limbs; scratch: [rows, n]
+// x, y: [rows, n] int32, row r holds limb r % limbs; scratch: [rows, n]
 // uint32.  Tables are offset to the first active limb: q [limbs], tw_cols
 // [limbs, n1], mid [limbs, n1, n2], tw_rows [limbs, n2], each uint2 entry
 // a (twiddle, Shoup companion) pair.  Returns the first CUDA error.
-extern "C" int moai_ntt_fwd(const int64_t* x, int64_t* y, uint32_t* scratch, long long rows,
+extern "C" int moai_ntt_fwd(const int32_t* x, int32_t* y, uint32_t* scratch, long long rows,
                             int limbs, int log_n, const uint32_t* q, const uint2* tw_cols,
                             const uint2* mid, const uint2* tw_rows, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -374,7 +375,7 @@ extern "C" int moai_ntt_fwd(const int64_t* x, int64_t* y, uint32_t* scratch, lon
 
 // The inverse: tw_rows and mid_inv (psi^-((2k1+1) j2) / N) for pass 1,
 // tw_cols (psi1^-bitrev) for pass 2.
-extern "C" int moai_ntt_inv(const int64_t* x, int64_t* y, uint32_t* scratch, long long rows,
+extern "C" int moai_ntt_inv(const int32_t* x, int32_t* y, uint32_t* scratch, long long rows,
                             int limbs, int log_n, const uint32_t* q, const uint2* tw_rows,
                             const uint2* mid_inv, const uint2* tw_cols, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;

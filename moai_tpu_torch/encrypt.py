@@ -39,15 +39,15 @@ def rounded_to_ntt(ctx: Context, encoder: Encoder, rounded: np.ndarray,
     the context's device."""
     lead = rounded.shape[:-1]
     flat = rounded.reshape(-1, ctx.cfg.N)
-    out = torch.empty((flat.shape[0], n_q, ctx.cfg.N), dtype=torch.int64,
+    out = torch.empty((flat.shape[0], n_q, ctx.cfg.N), dtype=torch.int32,
                       device=ctx.device)
     for lo in range(0, flat.shape[0], CHUNK):
         part = flat[lo:lo + CHUNK]
         if np.abs(part).max() < 2 ** 62:
             out[lo:lo + CHUNK] = coeffs_to_ntt(ctx, part, 0, n_q)
         else:                           # exact big-int residues (host)
-            res = torch.from_numpy(encoder.residues(part, n_q).astype(
-                np.int64)).to(ctx.device)
+            res = torch.from_numpy(encoder.residues(part, n_q).view(
+                np.int32)).to(ctx.device)
             out[lo:lo + CHUNK] = residues_to_ntt(ctx, res, 0, n_q)
     return out.reshape(lead + (n_q, ctx.cfg.N))
 
@@ -87,18 +87,17 @@ class Encryptor:
         q = ctx.dev["q"][:n_q].reshape(-1, 1)
         rinv = ctx.dev["rinv"][:n_q].reshape(-1, 1)
         pk0, pk1 = self.pk.data[0, :n_q], self.pk.data[1, :n_q]
-        out = torch.empty((m.shape[0], 2, n_q, N), dtype=torch.int64,
+        out = torch.empty((m.shape[0], 2, n_q, N), dtype=torch.int32,
                           device=ctx.device)
         for lo in range(0, m.shape[0], CHUNK):
             hi = lo + CHUNK
             u_ntt = coeffs_to_ntt(ctx, u[lo:hi], 0, n_q)
-            c0 = ma.mont_mul(u_ntt, pk0, q, rinv)
-            c0 += coeffs_to_ntt(ctx, e0[lo:hi], 0, n_q)
-            c0 += m[lo:hi]
-            out[lo:hi, 0] = c0.remainder_(q)
+            c0 = ma.add_mod(ma.mont_mul(u_ntt, pk0, q, rinv),
+                            coeffs_to_ntt(ctx, e0[lo:hi], 0, n_q), q)
+            out[lo:hi, 0] = ma.add_mod(c0, m[lo:hi], q)
             c1 = ma.mont_mul(u_ntt, pk1, q, rinv)
-            c1 += coeffs_to_ntt(ctx, e1[lo:hi], 0, n_q)
-            out[lo:hi, 1] = c1.remainder_(q)
+            out[lo:hi, 1] = ma.add_mod(
+                c1, coeffs_to_ntt(ctx, e1[lo:hi], 0, n_q), q)
         return Ciphertext(out.reshape(bshape + (2, n_q, N)), pt.scale)
 
     def encrypt_values(self, vals, scale: float | None = None,
@@ -117,7 +116,7 @@ class Decryptor:
         self.sk = sk
 
     def decrypt_to_residues(self, ct: Ciphertext) -> np.ndarray:
-        """-> standard residues [..., n_q, N] (int64 numpy)."""
+        """-> standard residues [..., n_q, N] (int32 numpy)."""
         n_q = ct.n_q
         dv = self.ctx.dev
         q = dv["q"][:n_q].reshape(-1, 1)

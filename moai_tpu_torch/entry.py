@@ -533,7 +533,7 @@ def build_bootstrap(cfg: CKKSConfig, batch: int, seed: int = 11,
     Keys are drawn from ``seed`` in the order of the JAX package's own
     bootstrap tests (public key, relinearization key, then the Galois keys
     of ``Bootstrapper.galois_steps()`` with the conjugation), and held as
-    int32 (29.3 GB of Galois keys at N = 2^16, 58.6 GB as int64).  Each
+    int32, as every residue (29.3 GB of Galois keys at N = 2^16).  Each
     ciphertext carries its own U(-value_bound, value_bound) slot values,
     drawn from ``seed``, encrypted at ctx.scale on n_q0 + 2 limbs: one
     spare level above q0, as the layers keep at a refresh.  ``fn``
@@ -548,13 +548,13 @@ def build_bootstrap(cfg: CKKSConfig, batch: int, seed: int = 11,
     kg = KeyGenerator(ctx, seed=seed, device=dev)
     encryptor = Encryptor(ctx, enc, kg.gen_public_key(), kg, device=dev)
     decryptor = Decryptor(ctx, enc, kg.sk, device=dev)
-    ev = Evaluator(ctx, relin_key=kg.gen_relin_key(torch.int32), device=dev)
+    ev = Evaluator(ctx, relin_key=kg.gen_relin_key(), device=dev)
     t2 = time.perf_counter()
     bt = Bootstrapper(ev, enc, m_bound=m_bound, lt_group=lt_group,
                       evalmod_degree=evalmod_degree)
     t3 = time.perf_counter()
     ev.galois_keys = kg.gen_galois_keys(steps=bt.galois_steps(),
-                                        conjugate=True, dtype=torch.int32)
+                                        conjugate=True)
     _sync(dev)
     t4 = time.perf_counter()
     n_out = ctx.L - 2 * bt.levels

@@ -11,10 +11,11 @@ The limb arithmetic goes through ``mod_arith``: on a CUDA tensor its
 hand-written kernels (csrc/limb.cu: the elementwise family, the base
 conversions of the key-switch decomposition and the mod-down, the
 key-switch MAC with the hoisted rotations' gather folded in), on a CPU
-tensor the plain torch ops.  The plain loops accumulate a few canonical
-residues in int64 and reduce once (each term is < 2^30, so a sum of up to
-2^33 terms cannot overflow); the result is the same canonical residue the
-JAX package's pairwise ``add_mod`` chain gives.
+tensor the plain torch ops.  Residues are int32 tensors on either device
+(``mod_arith``); the plain loops accumulate a few canonical residues in
+int64 and reduce once (each term is < 2^30, so a sum of up to 2^33 terms
+cannot overflow); the result is the same canonical residue the JAX
+package's pairwise ``add_mod`` chain gives.
 """
 
 from __future__ import annotations
@@ -114,7 +115,7 @@ class Evaluator:
         """round(value*scale) as per-limb Montgomery residues [n_q, 1]."""
         v = int(round(value * scale))
         out = [(v % q) * ((1 << 32) % q) % q for q in self.ctx.q_primes[:n_q]]
-        return torch.tensor(out, dtype=torch.int64,
+        return torch.tensor(out, dtype=torch.int32,
                             device=self.device).reshape(-1, 1)
 
     def add_const(self, a: Ciphertext, value: float) -> Ciphertext:
@@ -407,7 +408,7 @@ class Evaluator:
         """Per-leading-batch scalar constants: values [C] -> Montgomery
         residues [C, 1, n_q, 1]."""
         v = np.round(np.asarray(values, np.float64) * scale).astype(object)
-        out = np.empty((len(v), n_q), dtype=np.int64)
+        out = np.empty((len(v), n_q), dtype=np.int32)
         for i in range(n_q):
             q = self.ctx.q_primes[i]
             r = (1 << 32) % q

@@ -9,10 +9,10 @@ Hybrid key-switching keys: digit d's key encrypts P * gamma_d * target with
 gamma_d = (Q/D_d) * [(Q/D_d)^{-1} mod D_d].  All key material is in NTT +
 Montgomery form, shape [dnum, 2, L+K, N].
 
-Switching keys may be held as int32 (``dtype=torch.int32``): every residue
-is below 2^30, so the values are the same, in half the memory; the
-key-switch MAC widens them to int64 as it multiplies.  At N=2^16 the
-bootstrap's 107 Galois keys take 29.3 GB this way, 58.6 GB as int64.
+Every residue is an int32 tensor (``mod_arith``), switching keys too
+(``dtype=torch.int32``, the default; the argument stays so that a caller
+may ask for int64 copies, which the card's kernels refuse).  At N=2^16
+the bootstrap's 107 Galois keys take 29.3 GB.
 """
 
 from __future__ import annotations
@@ -48,11 +48,13 @@ def _residues(coeffs: np.ndarray, primes) -> np.ndarray:
 
 def residues_to_ntt(ctx: Context, res: torch.Tensor, lo: int, hi: int
                     ) -> torch.Tensor:
-    """Standard residues [..., hi-lo, N] over primes [lo, hi) -> NTT
-    Montgomery form, on the residues' device."""
-    q = ctx.dev["q"][lo:hi].reshape(-1, 1)
-    mont = (res * ctx.dev["r1"][lo:hi].reshape(-1, 1)).remainder_(q)
-    return ntt(mont, ctx.dev["ntt"], limb_slice=(lo, hi))
+    """Standard residues [..., hi-lo, N] (int32) over primes [lo, hi) ->
+    NTT Montgomery form, on the residues' device."""
+    dv = ctx.dev
+    mont = ma.to_mont(res, dv["q"][lo:hi].reshape(-1, 1),
+                      dv["rinv"][lo:hi].reshape(-1, 1),
+                      dv["r2"][lo:hi].reshape(-1, 1))
+    return ntt(mont, dv["ntt"], limb_slice=(lo, hi))
 
 
 def coeffs_to_ntt(ctx: Context, coeffs, lo: int, hi: int) -> torch.Tensor:
@@ -62,7 +64,8 @@ def coeffs_to_ntt(ctx: Context, coeffs, lo: int, hi: int) -> torch.Tensor:
     followed by the NTT)."""
     c = torch.as_tensor(np.asarray(coeffs, dtype=np.int64)).to(ctx.device)
     q = ctx.dev["q"][lo:hi].reshape(-1, 1)
-    return residues_to_ntt(ctx, c[..., None, :].remainder(q), lo, hi)
+    return residues_to_ntt(ctx, c[..., None, :].remainder(q).to(torch.int32),
+                           lo, hi)
 
 
 @dataclasses.dataclass
@@ -159,7 +162,8 @@ class KeyGenerator:
         raw = np.stack([self.rng._u64(N) for _ in range(hi - lo)])
         t = torch.from_numpy(raw.view(np.int64)).to(self.device)
         t.bitwise_and_((1 << 62) - 1)
-        return t.remainder_(self.ctx.dev["q"][lo:hi].reshape(-1, 1))
+        return t.remainder_(self.ctx.dev["q"][lo:hi].reshape(-1, 1)).to(
+            torch.int32)
 
     def _q(self, lo: int, hi: int):
         dv = self.ctx.dev
@@ -183,10 +187,10 @@ class KeyGenerator:
 
     # -- key-switching keys ----------------------------------------------
     def _gen_kswitch(self, target_ntt: torch.Tensor,
-                     dtype: torch.dtype = torch.int64) -> KSwitchKey:
+                     dtype: torch.dtype = torch.int32) -> KSwitchKey:
         """Key encrypting P*gamma_d*target per digit; target in NTT
         Montgomery form over the full basis [L+K, N], held as ``dtype``
-        (int64 or int32)."""
+        (int32, or int64 copies of the same values)."""
         ctx = self.ctx
         nall = ctx.L + ctx.K
         q, rinv = self._q(0, nall)
@@ -202,7 +206,7 @@ class KeyGenerator:
             hatD = Q // D
             gamma = hatD * pow(hatD % D, -1, D)                # mod Q
             # factor (P*gamma mod q_j) per limb, Montgomery; 0 on P limbs
-            fac = np.zeros(nall, dtype=np.int64)
+            fac = np.zeros(nall, dtype=np.int32)
             for j, qj in enumerate(ctx.q_primes):
                 fac[j] = (P % qj) * (gamma % qj) % qj * ((1 << 32) % qj) % qj
             facj = torch.from_numpy(fac).to(self.device).reshape(-1, 1)
@@ -214,7 +218,7 @@ class KeyGenerator:
             keys.append(torch.stack([b, a]).to(dtype))
         return KSwitchKey(data=torch.stack(keys))
 
-    def gen_relin_key(self, dtype: torch.dtype = torch.int64) -> KSwitchKey:
+    def gen_relin_key(self, dtype: torch.dtype = torch.int32) -> KSwitchKey:
         q, rinv = self._q(0, self.ctx.L + self.ctx.K)
         s2 = ma.mont_mul(self.sk.s_ntt, self.sk.s_ntt, q, rinv)
         return self._gen_kswitch(s2, dtype)
@@ -236,7 +240,7 @@ class KeyGenerator:
         return 2 * self.ctx.cfg.N - 1
 
     def gen_galois_keys(self, steps: list[int], conjugate: bool = False,
-                        dtype: torch.dtype = torch.int64) -> GaloisKeys:
+                        dtype: torch.dtype = torch.int32) -> GaloisKeys:
         """Keys for the exact rotation-step set, held as ``dtype``."""
         elts = [self.galois_elt_rotation(s) for s in steps]
         if conjugate:

@@ -16,14 +16,16 @@ path, and what the kernels are held ``torch.equal`` to on the card):
 - ``diag_mac``: the bootstrap's sum of ciphertext-times-diagonal products
   of one giant step.
 
+Every kernel reads and writes int32 residues (the port's at-rest format),
+and its per-limb tables are int32 too; each wrapper raises ``TypeError`` on
+an int64 tensor (a Galois permutation, ``perm``, is an int64 index tensor).
 The source is built by ``cuda_build`` at first use.  Each wrapper checks
 device, dtype, shape and contiguity and raises on what its kernel does not
 take; it never falls back to the torch ops.  Each launch adds one to
 ``launches``; a call with nothing to compute launches nothing.  Beside it,
 ``shapes`` counts the launches of ``base_conv`` and ``ks_mac`` by launch
-shape (``conv_shape``, ``mac_shape``), so a run can name its commonest
-one.  The kernels launch on PyTorch's current stream and do not
-synchronise.
+shape (``conv_shape``, ``mac_shape``), so a run can name its commonest one.
+The kernels launch on PyTorch's current stream and do not synchronise.
 """
 
 from __future__ import annotations
@@ -51,8 +53,7 @@ _ll, _p, _i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 
 
 class _Operand(ctypes.Structure):
-    _fields_ = [("ptr", _p), ("value", _ll), ("stride", _ll * MAX_DIMS),
-                ("is32", _i)]
+    _fields_ = [("ptr", _p), ("value", _ll), ("stride", _ll * MAX_DIMS)]
 
 
 class _EwArgs(ctypes.Structure):
@@ -70,9 +71,9 @@ class _BaseConvArgs(ctypes.Structure):
 
 class _KsMacArgs(ctypes.Structure):
     _fields_ = [("y", _p), ("perm", _p), ("key", _p * MAX_ROT), ("tq", _p),
-                ("tqs", _ll), ("out", _p), ("B", _ll), ("key32", _i),
-                ("KL", _i), ("split", _i), ("kgap", _i), ("R", _i),
-                ("D", _i), ("T", _i), ("N", _i)]
+                ("tqs", _ll), ("out", _p), ("B", _ll), ("KL", _i),
+                ("split", _i), ("kgap", _i), ("R", _i), ("D", _i), ("T", _i),
+                ("N", _i)]
 
 
 class _DiagMacArgs(ctypes.Structure):
@@ -129,10 +130,9 @@ def _device_of(tensors) -> torch.device:
     return next(iter(devs))
 
 
-def _int_tensor(t: torch.Tensor, name: str, dtypes=(torch.int64,)):
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, "
-                        f"got {t.dtype}")
+def _int_tensor(t: torch.Tensor, name: str, dtype=torch.int32):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
 
 
 def _contiguous(t: torch.Tensor, name: str) -> None:
@@ -143,7 +143,7 @@ def _contiguous(t: torch.Tensor, name: str) -> None:
 def _aligned16(t: torch.Tensor, name: str) -> None:
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary (the "
-                         f"kernel loads coefficient pairs)")
+                         f"kernel loads coefficients in vectors)")
 
 
 def _vector(t: torch.Tensor, n: int, name: str) -> tuple[int, int]:
@@ -201,10 +201,11 @@ def ew_layout(ops):
 
 
 def limb_ew(op: str, a, b, c, q) -> torch.Tensor:
-    """``op`` over the broadcast of a, b, c (each a CUDA int64 or int32
-    tensor, a Python int or None) modulo q (a CUDA tensor or a Python int):
-    a new contiguous int64 tensor of canonical residues.  ``mul``,
-    ``from_mont`` and ``sub_mul`` need odd q below 2^31."""
+    """``op`` over the broadcast of a, b, c (each a CUDA int32 tensor, a
+    Python int or None) modulo q (a CUDA int32 tensor or a Python int),
+    every value in [0, 2^31): a new contiguous int32 tensor of canonical
+    residues, equal to the plain version on that whole domain.  q is an
+    odd prime below 2^30."""
     ops = (a, b, c, q)
     tensors = [t for t in ops if isinstance(t, torch.Tensor)]
     if not tensors:
@@ -212,12 +213,15 @@ def limb_ew(op: str, a, b, c, q) -> torch.Tensor:
     device = _device_of(tensors)
     for name, t in zip("abcq", ops):
         if isinstance(t, torch.Tensor):
-            _int_tensor(t, name, (torch.int64, torch.int32))
-        elif t is not None and not isinstance(t, int):
+            _int_tensor(t, name)
+        elif isinstance(t, int):
+            if not 0 <= t < 1 << 31:
+                raise ValueError(f"{name} = {t} is outside [0, 2^31)")
+        elif t is not None:
             raise TypeError(f"{name} must be a tensor or an int, got "
                             f"{type(t).__name__}")
     shape, sizes, st, rows = ew_layout(ops)
-    out = torch.empty(shape, dtype=torch.int64, device=device)
+    out = torch.empty(shape, dtype=torch.int32, device=device)
     if not rows:
         return out
     args = _EwArgs(out=out.data_ptr(), rows=rows, ndim=len(sizes),
@@ -226,7 +230,7 @@ def limb_ew(op: str, a, b, c, q) -> torch.Tensor:
     for k, (t, s) in enumerate(zip(ops, st)):
         o = args.inp[k]
         if isinstance(t, torch.Tensor):
-            o.ptr, o.is32 = t.data_ptr(), int(t.dtype == torch.int32)
+            o.ptr = t.data_ptr()
         else:
             o.value = int(t or 0)
         o.stride[:len(s)] = s
@@ -247,12 +251,12 @@ def conv_shape(x: torch.Tensor, hat: torch.Tensor, hatinv, k) -> tuple:
 
 
 def base_conv(x, src_q, hatinv, hat, tq, k=None, kq=None) -> torch.Tensor:
-    """Fast base conversion on the card: x [..., S, N] (contiguous int64,
+    """Fast base conversion on the card: x [..., S, N] (contiguous int32,
     canonical, 16-byte aligned, N even), digits of A input limbs (hat
     [D, A, T], any strides) -> [..., D, T, N] modulo tq (T entries).  With
     hatinv ([S], Montgomery hat inverses modulo src_q) each input is first
     turned into lam = from_mont(mont_mul(x, hatinv)); without it x holds
-    lam.  With k ([..., N], contiguous int64) and kq (T entries),
+    lam.  With k ([..., N], contiguous int32) and kq (T entries),
     mont_mul(k, kq) is subtracted from each output.  See
     mod_arith.base_conv_plain."""
     tensors = [t for t in (x, src_q, hatinv, hat, tq, k, kq) if t is not None]
@@ -274,7 +278,7 @@ def base_conv(x, src_q, hatinv, hat, tq, k=None, kq=None) -> torch.Tensor:
     if smem > SMEM_BYTES:
         raise ValueError(f"{T} targets x {A} limbs need {smem} bytes of "
                          f"shared memory, over {SMEM_BYTES}")
-    out = torch.empty(x.shape[:-2] + (D, T, N), dtype=torch.int64,
+    out = torch.empty(x.shape[:-2] + (D, T, N), dtype=torch.int32,
                       device=device)
     if B == 0:
         return out
@@ -307,18 +311,17 @@ def base_conv(x, src_q, hatinv, hat, tq, k=None, kq=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def mac_shape(y: torch.Tensor, keys: list, q_limbs: int, perm) -> tuple:
-    """ks_mac's launch shape: (R, B, D, T, N, KL, q_limbs, int32 keys,
-    with perm)."""
+    """ks_mac's launch shape: (R, B, D, T, N, KL, q_limbs, with perm)."""
     D, T, N = y.shape[-3:]
     B = y.numel() // (D * T * N) if y.numel() else 0
     return (len(keys), B, D, T, N, keys[0].shape[-2], q_limbs,
-            keys[0].dtype == torch.int32, perm is not None)
+            perm is not None)
 
 
 def ks_mac(y, keys, q_limbs: int, tq, perm=None):
-    """The key-switch MAC on the card: y [..., D, T, N] (contiguous int64,
+    """The key-switch MAC on the card: y [..., D, T, N] (contiguous int32,
     canonical) against the key rows of the first D digits of each key
-    [dnum, 2, q_limbs + K, N] (contiguous, int64 or int32), target t read
+    [dnum, 2, q_limbs + K, N] (contiguous int32), target t read
     at key limb t for t < T - K and q_limbs + t - (T - K) above, modulo tq.
     Without perm, keys is one key and the result is (acc0, acc1), each
     [..., T, N]; with perm [R, N], keys holds R keys, rotation r reads y at
@@ -332,10 +335,10 @@ def ks_mac(y, keys, q_limbs: int, tq, perm=None):
     D, T, N = y.shape[-3:]
     key_shape = keys[0].shape
     for key in keys:
-        _int_tensor(key, "key", (torch.int64, torch.int32))
+        _int_tensor(key, "key")
         _contiguous(key, "key")
-        if key.shape != key_shape or key.dtype != keys[0].dtype:
-            raise ValueError("the keys of one launch differ in shape or dtype")
+        if key.shape != key_shape:
+            raise ValueError("the keys of one launch differ in shape")
     if len(key_shape) != 4 or key_shape[0] < D or key_shape[1] != 2 \
             or key_shape[3] != N:
         raise ValueError(f"key {tuple(key_shape)} is not [>= {D}, 2, KL, {N}]")
@@ -346,7 +349,7 @@ def ks_mac(y, keys, q_limbs: int, tq, perm=None):
                          f"and {KL - q_limbs} special limbs")
     R = len(keys)
     if perm is not None:
-        _int_tensor(perm, "perm")
+        _int_tensor(perm, "perm", torch.int64)
         _contiguous(perm, "perm")
         if tuple(perm.shape) != (R, N):
             raise ValueError(f"perm {tuple(perm.shape)} is not [{R}, {N}]")
@@ -356,11 +359,10 @@ def ks_mac(y, keys, q_limbs: int, tq, perm=None):
         raise ValueError(f"{D} digits in one launch, at most {MAX_DIGITS}")
     shape = mac_shape(y, keys, q_limbs, perm)
     B = shape[1]
-    out = torch.empty((2, R) + y.shape[:-3] + (T, N), dtype=torch.int64,
+    out = torch.empty((2, R) + y.shape[:-3] + (T, N), dtype=torch.int32,
                       device=device)
     if B:
-        args = _KsMacArgs(y=y.data_ptr(), out=out.data_ptr(), B=B,
-                          key32=int(keys[0].dtype == torch.int32), KL=KL,
+        args = _KsMacArgs(y=y.data_ptr(), out=out.data_ptr(), B=B, KL=KL,
                           split=n_q, kgap=q_limbs - n_q, R=R, D=D, T=T, N=N)
         args.perm = perm.data_ptr() if perm is not None else None
         for r, key in enumerate(keys):
@@ -378,8 +380,9 @@ def ks_mac(y, keys, q_limbs: int, tq, perm=None):
 
 def diag_mac(cts, pts, q) -> torch.Tensor:
     """One giant step's sum_j mont_mul(cts[j], pts[j]) mod q on the card:
-    cts, each [..., L, N] (one shape, contiguous int64, canonical), pts
-    [len(cts), L, N] (contiguous int64, canonical), q with L entries."""
+    cts, each [..., L, N] (one shape, contiguous int32, canonical, 16-byte
+    aligned), pts [len(cts), L, N] (the same), q with L entries; N a
+    multiple of 4."""
     cts = list(cts)
     device = _device_of([*cts, pts, q])
     if not cts or pts.dim() != 3 or pts.shape[0] != len(cts):
@@ -398,9 +401,13 @@ def diag_mac(cts, pts, q) -> torch.Tensor:
     if len(cts) > MAX_TERMS:
         raise ValueError(f"{len(cts)} diagonals in one launch, at most "
                          f"{MAX_TERMS}")
-    out = torch.empty(cts[0].shape, dtype=torch.int64, device=device)
+    if N % 4:
+        raise ValueError(f"diag_mac takes N a multiple of 4, got {N}")
+    out = torch.empty(cts[0].shape, dtype=torch.int32, device=device)
     B = out.numel() // (L * N) if out.numel() else 0
     if B:
+        for t in (pts, *cts):
+            _aligned16(t, "each ciphertext and pts")
         args = _DiagMacArgs(pt=pts.data_ptr(), out=out.data_ptr(), B=B,
                             terms=len(cts), L=L, N=N)
         for j, ct in enumerate(cts):

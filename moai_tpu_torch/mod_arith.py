@@ -1,31 +1,37 @@
-"""Modular arithmetic for RNS limbs, on int64 torch tensors.
+"""Modular arithmetic for RNS limbs, on int32 torch tensors.
 
 Port of ``moai_tpu/mod_arith.py``.  Residues hold exactly the values the
 JAX package holds in uint32: Montgomery form ``x*R mod q`` with R = 2**32
-and primes q < 2**30, so a product of two residues is < 2**60 and fits an
-int64 lane.  Every function returns the canonical residue in [0, q), so
-any exact method agrees bit for bit with the JAX package; where that code
-relies on uint32 wrap-around (``sub_mod``, ``shoup_mul``, ``mont_redc``)
-this one computes the same value with ``%`` or a shift.
+and primes q < 2**30, so every residue fits the non-negative range of an
+int32 lane, on the card and on the CPU alike.  Every function returns the
+canonical residue in [0, q) as int32, so any exact method agrees bit for
+bit with the JAX package; where that code relies on uint32 wrap-around
+(``sub_mod``, ``shoup_mul``, ``mont_redc``) this one computes the same
+value with ``%`` or a shift.
+
+The plain versions widen their operands to int64 for every product and
+every sum of more than one term (a product of two residues is < 2**60)
+and narrow the canonical result back to int32; wider integers exist only
+inside such a computation.  They also take int64 operands in the ranges
+their docstrings state, and still return int32.
 
 ``mont_mul`` takes ``rinv = R**-1 mod q`` where the JAX version takes
-``-q**-1 mod R``: on 64-bit lanes the Montgomery product is simply
+``-q**-1 mod R``: on 64-bit intermediates the Montgomery product is simply
 ``a*b*R**-1 mod q``.  The 16-bit-halves multiply (``mul_full_u32``) and the
 XLA scheduling barrier (``seq``) have no counterpart here.
 
-Per-limb constants are int64 tensors of shape ``[n_limbs, 1]``, broadcast
-against ``[..., n_limbs, N]`` data.  The functions that build a fresh
-product reduce it in place, so a call allocates one output tensor.
+Per-limb constants are int32 tensors of shape ``[n_limbs, 1]`` (they are
+residues too), broadcast against ``[..., n_limbs, N]`` data.
 
 Each operation dispatches on its data's device, as ``ntt.ntt`` does: a
 CUDA tensor launches a hand-written kernel of ``limb_cuda``
-(csrc/limb.cu) or raises, a CPU tensor takes the plain version
-(``*_plain``), which is the torch code of the JAX package's ops and what
-the kernels are held ``torch.equal`` to on the card.  Beside the
-elementwise family are the scheme's three loops over limbs, each with its
-plain version and its kernel: the fast base conversion (``base_conv``),
-the key-switch MAC (``ks_mac``) and the bootstrap's diagonal MAC
-(``diag_mac``).
+(csrc/limb.cu), which takes int32 tensors only, or raises; a CPU tensor
+takes the plain version (``*_plain``), which is the torch code of the JAX
+package's ops and what the kernels are held ``torch.equal`` to on the
+card.  Beside the elementwise family are the scheme's three loops over
+limbs, each with its plain version and its kernel: the fast base
+conversion (``base_conv``), the key-switch MAC (``ks_mac``) and the
+bootstrap's diagonal MAC (``diag_mac``).
 """
 
 from __future__ import annotations
@@ -72,39 +78,57 @@ def host_shoup(w: int, q: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# device-side primitives (int64 tensors; shapes broadcast).  The plain
-# versions take any int64 values; mont_mul_plain and from_mont_plain are
-# exact while their int64 products stay below 2^63.
+# device-side primitives (int32 residues; shapes broadcast).  The plain
+# versions compute in int64 and return int32; their domains are stated
+# for non-negative operands, and the int32 residues' whole range [0, 2^31)
+# lies inside each of them.
 # ---------------------------------------------------------------------------
 
 def _on_card(*xs) -> bool:
     return any(isinstance(x, torch.Tensor) and x.is_cuda for x in xs)
 
 
+def _wide(x):
+    """A tensor operand as int64 (a Python int as it is)."""
+    return x.to(torch.int64) if isinstance(x, torch.Tensor) else x
+
+
+def _narrow(x: torch.Tensor) -> torch.Tensor:
+    """A canonical int64 result (below q < 2^30) as the int32 residue."""
+    return x.to(torch.int32)
+
+
+def _mont_mul64(a, b, q, rinv):
+    t = _wide(a) * _wide(b)
+    t.remainder_(_wide(q))
+    t.mul_(_wide(rinv))
+    return t.remainder_(_wide(q))
+
+
 def add_mod_plain(a, b, q):
-    return (a + b).remainder_(q)
+    """(a + b) mod q, canonical.  Exact for any |a|, |b| < 2^62."""
+    return _narrow((_wide(a) + _wide(b)).remainder_(_wide(q)))
 
 
 def sub_mod_plain(a, b, q):
-    return (a - b).remainder_(q)
+    """(a - b) mod q, canonical (floored).  Exact for any |a|, |b| < 2^62."""
+    return _narrow((_wide(a) - _wide(b)).remainder_(_wide(q)))
 
 
 def neg_mod_plain(a, q):
-    return (-a).remainder_(q)
+    return _narrow((-_wide(a)).remainder_(_wide(q)))
 
 
 def mont_mul_plain(a, b, q, rinv):
-    """Montgomery product: mm(xR, yR) = xyR mod q, in [0, q).  Exact for any
-    a, b < 2**32 with one of them < 2**30 (the product stays < 2**62)."""
-    t = a * b
-    t.remainder_(q)
-    t.mul_(rinv)
-    return t.remainder_(q)
+    """Montgomery product: mm(xR, yR) = xyR mod q, in [0, q).  Exact while
+    the int64 product a * b stays below 2^63: any a, b in [0, 2^32) with
+    one of them below 2^31, so every pair of int32 residues."""
+    return _narrow(_mont_mul64(a, b, q, rinv))
 
 
 def from_mont_plain(x, q, rinv):
-    """Montgomery form -> true residue in [0, q)."""
-    return (x * rinv).remainder_(q)
+    """Montgomery form -> true residue in [0, q).  Exact for |x| < 2^33."""
+    return _narrow((_wide(x) * _wide(rinv)).remainder_(_wide(q)))
 
 
 def sub_mont_mul_plain(a, b, c, q, rinv):
@@ -132,7 +156,7 @@ def neg_mod(a, q):
 
 def mont_mul(a, b, q, rinv):
     """Montgomery product a*b*R^-1 mod q.  The kernel derives -q^-1 mod R
-    from q, so ``rinv`` is read only by the plain version."""
+    from q once per row, so ``rinv`` is read only by the plain version."""
     if _on_card(a, b):
         return limb_cuda.limb_ew("mul", a, b, None, q)
     return mont_mul_plain(a, b, q, rinv)
@@ -150,7 +174,8 @@ def shoup_mul(x, w, w_shoup, q):
     w_shoup = floor(w * 2^32 / q).  h = floor(x*w_shoup / 2^32) puts q*h
     within (xw - 2q, xw], so r = x*w - h*q lies in [0, 2q): one conditional
     subtract.  The multiplier is a true value, so Montgomery x stays
-    Montgomery.  Plain torch only: the plain NTT's butterfly."""
+    Montgomery.  Plain torch only: the plain NTT's butterfly, on its int64
+    lanes (x * w_shoup needs 62 bits); returns int64."""
     h = (x * w_shoup) >> R_BITS
     r = x * w
     r.sub_(h * q)
@@ -158,7 +183,8 @@ def shoup_mul(x, w, w_shoup, q):
 
 
 def to_mont(x, q, rinv, r2):
-    """True residues (any value < 2**32, even >= q) -> Montgomery form."""
+    """True residues (any value in [0, 2**31), even >= q) -> Montgomery
+    form; the plain version also takes int64 values below 2**32."""
     return mont_mul(x, r2, q, rinv)
 
 
@@ -182,7 +208,8 @@ def base_conv_plain(x, src_q, src_rinv, hatinv, hat, tq, trinv, k=None,
     holds lam), then out[..., d, t, :] = sum_a mont_mul(lam_a, hat[d, a, t])
     mod tq[t] -> [..., D, T, N].  With k [..., N] and kq [T],
     mont_mul(k, kq) is subtracted (ModRaise's multiple of q0).  src_q,
-    src_rinv and hatinv hold at least D*A entries, tq and trinv T."""
+    src_rinv and hatinv hold at least D*A entries, tq and trinv T.  Exact
+    for x and k in [0, 2^32) (k also negative), every sum in int64."""
     D, A, T = hat.shape
     pad = D * A - x.shape[-2]
     if pad:
@@ -192,19 +219,19 @@ def base_conv_plain(x, src_q, src_rinv, hatinv, hat, tq, trinv, k=None,
     if hatinv is not None:
         qs = src_q.reshape(-1)[:D * A].reshape(D, A, 1)
         rs = src_rinv.reshape(-1)[:D * A].reshape(D, A, 1)
-        lam = from_mont_plain(mont_mul_plain(
+        lam = from_mont_plain(_mont_mul64(
             lam, hatinv.reshape(-1)[:D * A].reshape(D, A, 1), qs, rs), qs, rs)
     tq, trinv = tq.reshape(-1, 1), trinv.reshape(-1, 1)
     y = None
     for a in range(A):
-        term = mont_mul_plain(lam[..., :, a, None, :], hat[:, a, :, None],
-                              tq, trinv)
+        term = _mont_mul64(lam[..., :, a, None, :], hat[:, a, :, None],
+                           tq, trinv)
         y = term if y is None else y.add_(term)
-    y.remainder_(tq)
+    y.remainder_(_wide(tq))
     if k is not None:
-        y = sub_mod_plain(y, mont_mul_plain(k[..., None, None, :],
-                                            kq.reshape(-1, 1), tq, trinv), tq)
-    return y
+        y.sub_(_mont_mul64(k[..., None, None, :], kq.reshape(-1, 1), tq,
+                           trinv)).remainder_(_wide(tq))
+    return _narrow(y)
 
 
 def base_conv(x, src_q, src_rinv, hatinv, hat, tq, trinv, k=None, kq=None):
@@ -227,8 +254,8 @@ def ks_mac_plain(y, keys, q_limbs: int, tq, trinv, perm=None):
     """The key-switch MAC in torch ops: y [..., D, T, N] against the key rows
     of ``keys`` (one key [dnum, 2, q_limbs+K, N]; with perm [R, N], a list
     of R keys, and y gathered per rotation, y[..., perm[r]]), each digit's
-    products summed and reduced -> (acc0, acc1), [..., T, N] (with perm
-    [R, ..., T, N]).  Leading batch axes broadcast."""
+    products summed in int64 and reduced -> (acc0, acc1), [..., T, N]
+    (with perm [R, ..., T, N]).  Leading batch axes broadcast."""
     D, T = y.shape[-3], y.shape[-2]
     n_q = T - ((keys if perm is None else keys[0]).shape[-2] - q_limbs)
     tq, trinv = tq.reshape(-1, 1), trinv.reshape(-1, 1)
@@ -244,13 +271,12 @@ def ks_mac_plain(y, keys, q_limbs: int, tq, trinv, perm=None):
     acc0 = acc1 = None
     for d in range(D):
         yd = y[..., d, :, :]
-        t0 = mont_mul_plain(yd, kr[..., d, 0, :, :], tq, trinv)
-        t1 = mont_mul_plain(yd, kr[..., d, 1, :, :], tq, trinv)
+        t0 = _mont_mul64(yd, kr[..., d, 0, :, :], tq, trinv)
+        t1 = _mont_mul64(yd, kr[..., d, 1, :, :], tq, trinv)
         acc0 = t0 if acc0 is None else acc0.add_(t0)
         acc1 = t1 if acc1 is None else acc1.add_(t1)
-    acc0.remainder_(tq)
-    acc1.remainder_(tq)
-    return acc0, acc1
+    return (_narrow(acc0.remainder_(_wide(tq))),
+            _narrow(acc1.remainder_(_wide(tq))))
 
 
 def ks_mac(y, keys, q_limbs: int, tq, trinv, perm=None):
@@ -264,12 +290,13 @@ def ks_mac(y, keys, q_limbs: int, tq, trinv, perm=None):
 def diag_mac_plain(cts, pts, q, rinv):
     """One giant step's sum of multiply_plain products in torch ops:
     sum_j mont_mul(cts[j], pts[j]) mod q, cts[j] [..., n_polys, n_q, N]
-    and pts [J, n_q, N] (each diagonal broadcast over the polynomials)."""
+    and pts [J, n_q, N] (each diagonal broadcast over the polynomials),
+    the canonical products summed in int64 and reduced once."""
     part = None
     for ct, pt in zip(cts, pts):
-        term = mont_mul_plain(ct, pt.unsqueeze(-3), q, rinv)
-        part = term if part is None else add_mod_plain(part, term, q)
-    return part
+        term = _mont_mul64(ct, pt.unsqueeze(-3), q, rinv)
+        part = term if part is None else part.add_(term)
+    return _narrow(part.remainder_(_wide(q)))
 
 
 def diag_mac(cts, pts, q, rinv):

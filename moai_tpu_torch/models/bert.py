@@ -210,11 +210,11 @@ class EncryptedAttention:
 
 
 # The layer's LayerNorm and FFN column chunk: a chunk's input at the full
-# level, [chunk, 2, L, N] int64, within LAYER_CHUNK_BYTES (at logN 15 and
+# level, [chunk, 2, L, N] int32, within LAYER_CHUNK_BYTES (at logN 15 and
 # 28 primes: 128 columns).  The FFN's GELU holds several times its input at
 # once (its Chebyshev powers and a key switch's transients); at 128
 # columns the BERT-base layer peaks at ~52 GiB on an 80 GB card.
-LAYER_CHUNK_BYTES = 7 << 28
+LAYER_CHUNK_BYTES = 7 << 27
 
 
 class EncryptedBertLayer:
@@ -262,7 +262,7 @@ class EncryptedBertLayer:
         self.ln1_domain, self.ln2_domain = ln1_domain, ln2_domain
         self.gelu_domain = gelu_domain
         self.col_chunk = max(1, LAYER_CHUNK_BYTES // (2 * ctx.L * ctx.cfg.N
-                                                      * 8))
+                                                      * 4))
 
     def _residual(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         q = self.ev.dev["q"][:a.n_q].reshape(-1, 1)

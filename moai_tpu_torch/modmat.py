@@ -30,8 +30,9 @@ MAX_J = 8192      # keeps |digit dot| < 2^27 (J * 128 * 128)
 
 
 def _balanced_digits(x: torch.Tensor) -> list[torch.Tensor]:
-    """Non-negative int64 values < 2^32 -> NDIG int8 tensors d_k with
-    x = sum 2^(8k) d_k, d_k in [-128, 127]."""
+    """Integers 0 <= x <= 127 * 0x01010101 (every int32 residue below
+    2^30 and more) -> NDIG int8 tensors d_k with x = sum 2^(8k) d_k,
+    d_k in [-128, 127]; computed in x's dtype."""
     digs = []
     cur = x
     for _ in range(NDIG):
@@ -62,7 +63,7 @@ def host_bucket_consts(qs: list[int]) -> np.ndarray:
     """bucket_mul [2*NDIG-1, L]: 2^(8k) * R mod q, so one Montgomery
     multiply folds bucket k's sum into the accumulator."""
     nb = 2 * NDIG - 1
-    cmul = np.empty((nb, len(qs)), dtype=np.int64)
+    cmul = np.empty((nb, len(qs)), dtype=np.int32)
     for li, q in enumerate(qs):
         for k in range(nb):
             cmul[k, li] = (1 << (8 * k)) * (1 << 32) % q
@@ -76,9 +77,12 @@ def _pad8(n: int, least: int = 8) -> int:
 def mod_matmul(x: torch.Tensor, w_digits: torch.Tensor,
                bucket_mul: torch.Tensor, q: torch.Tensor,
                rinv: torch.Tensor) -> torch.Tensor:
-    """x: int64 [J, P, L, N] Montgomery; w_digits: int8 [NDIG, L, J, I];
-    bucket_mul: int64 [2*NDIG-1, L]; q, rinv: int64 [L].  Returns int64
-    [I, P, L, N] Montgomery = sum_j x_j * w_ji mod q_l."""
+    """x: int32 [J, P, L, N] Montgomery; w_digits: int8 [NDIG, L, J, I];
+    bucket_mul: int32 [2*NDIG-1, L]; q, rinv: int32 [L].  Returns int32
+    [I, P, L, N] Montgomery = sum_j x_j * w_ji mod q_l.  Each digit
+    bucket's product (|part| < 2^29, int32) is reduced, folded by one
+    Montgomery multiply, and added to the canonical accumulator with
+    ``add_mod``, so no sum leaves int32."""
     J, P, L, N = x.shape
     I = w_digits.shape[-1]
     if J > MAX_J:
@@ -87,8 +91,8 @@ def mod_matmul(x: torch.Tensor, w_digits: torch.Tensor,
     # w^T digits, zero-padded: [NDIG, L, Ip, Jp]
     wt = torch.zeros((NDIG, L, Ip, Jp), dtype=torch.int8, device=x.device)
     wt[:, :, :I, :J] = w_digits.transpose(-1, -2)
-    out = torch.empty((I, P, L, N), dtype=torch.int64, device=x.device)
-    xl = torch.zeros((P * N, Jp), dtype=torch.int64, device=x.device)
+    out = torch.empty((I, P, L, N), dtype=torch.int32, device=x.device)
+    xl = torch.zeros((P * N, Jp), dtype=torch.int32, device=x.device)
     for li in range(L):
         xl[:, :J] = x[:, :, li, :].reshape(J, P * N).t()
         xd = _balanced_digits(xl)                      # NDIG x [P*N, Jp]
@@ -102,8 +106,8 @@ def mod_matmul(x: torch.Tensor, w_digits: torch.Tensor,
                 term = torch._int_mm(wt[k - dx, li], xd[dx].t())  # [Ip, P*N]
                 part = term if part is None else part.add_(term)
             # |part| < 2^29: reduce, then fold with 2^(8k) R
-            fold = ma.mont_mul(part[:I].to(torch.int64).remainder_(ql),
-                               bucket_mul[k, li], ql, rl)
-            acc = fold if acc is None else acc.add_(fold)
-        out[:, :, li, :] = acc.remainder_(ql).reshape(I, P, N)
+            fold = ma.mont_mul(part[:I].remainder_(ql), bucket_mul[k, li],
+                               ql, rl)
+            acc = fold if acc is None else ma.add_mod(acc, fold, ql)
+        out[:, :, li, :] = acc.reshape(I, P, N)
     return out

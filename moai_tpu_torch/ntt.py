@@ -141,7 +141,8 @@ class NttTables:
         self.bitrev = {n: _bitrev_perm(n) for n in {n1, n2}}
 
     def to(self, device) -> dict:
-        """Tables of the plain transforms as int64 tensors on ``device``."""
+        """Tables of the plain transforms as int64 tensors on ``device``
+        (their lanes: a Shoup companion needs 32 unsigned bits)."""
         def t(a):
             return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
         return {
@@ -179,8 +180,8 @@ def _axis_ntt_dif(x, stages, bitrev, q):
         v = xv[..., 1, :, :]
         twp = tw[:, 0].reshape(-1, 1, half, 1)   # [L, 1, half, 1]
         tws = tw[:, 1].reshape(-1, 1, half, 1)
-        s = ma.add_mod_plain(u, v, q4)
-        d = ma.shoup_mul(ma.sub_mod_plain(u, v, q4), twp, tws, q4)
+        s = (u + v).remainder_(q4)
+        d = ma.shoup_mul((u - v).remainder_(q4), twp, tws, q4)
         x = torch.stack([s, d], dim=-3).reshape(lead + (n, m))
         t = half
     return torch.index_select(x, -2, bitrev)
@@ -203,8 +204,8 @@ def _axis_intt_dit(x, stages_inv, bitrev, q):
         twp = tw[:, 0].reshape(-1, 1, half, 1)
         tws = tw[:, 1].reshape(-1, 1, half, 1)
         bw = ma.shoup_mul(b, twp, tws, q4)
-        u = ma.add_mod_plain(a, bw, q4)
-        v = ma.sub_mod_plain(a, bw, q4)
+        u = (a + bw).remainder_(q4)
+        v = (a - bw).remainder_(q4)
         x = torch.stack([u, v], dim=-3).reshape(lead + (n, m))
     return x
 
@@ -215,13 +216,14 @@ def _sl(a, limb_slice):
 
 def ntt_plain(x, tb: dict, limb_slice=None):
     """Forward negacyclic NTT in plain PyTorch ops (any device).
-    x: [..., L, N] Montgomery int64; tb: ``NttTables.to(device)``."""
+    x: [..., L, N] canonical Montgomery residues (int32, or int64);
+    tb: ``NttTables.to(device)``.  Computes on int64 lanes, returns int32."""
     N = x.shape[-1]
     n1, n2 = tb["w_mid_pl"].shape[-2], tb["w_mid_pl"].shape[-1]
     q = _sl(tb["q"], limb_slice).reshape(-1, 1)
     if q.shape[0] != x.shape[-2]:
         raise ValueError(f"{q.shape[0]} table limbs for data {tuple(x.shape)}")
-    x = ma.shoup_mul(x, _sl(tb["psi_pl"], limb_slice),
+    x = ma.shoup_mul(x.to(torch.int64), _sl(tb["psi_pl"], limb_slice),
                      _sl(tb["psi_sh"], limb_slice), q)
     x = x.reshape(x.shape[:-1] + (n1, n2))
     x = _axis_ntt_dif(x, [_sl(a, limb_slice) for a in tb["stage_tw"][n1]],
@@ -231,7 +233,7 @@ def ntt_plain(x, tb: dict, limb_slice=None):
     x = x.transpose(-1, -2)
     x = _axis_ntt_dif(x, [_sl(a, limb_slice) for a in tb["stage_tw"][n2]],
                       tb["bitrev"][n2], q)
-    return x.reshape(x.shape[:-2] + (N,))
+    return x.reshape(x.shape[:-2] + (N,)).to(torch.int32)
 
 
 def intt_plain(x, tb: dict, limb_slice=None):
@@ -242,7 +244,7 @@ def intt_plain(x, tb: dict, limb_slice=None):
     q = _sl(tb["q"], limb_slice).reshape(-1, 1)
     if q.shape[0] != x.shape[-2]:
         raise ValueError(f"{q.shape[0]} table limbs for data {tuple(x.shape)}")
-    x = x.reshape(x.shape[:-1] + (n2, n1))
+    x = x.to(torch.int64).reshape(x.shape[:-1] + (n2, n1))
     x = _axis_intt_dit(x, [_sl(a, limb_slice)
                            for a in tb["stage_tw_inv"][n2]],
                        tb["bitrev"][n2], q)
@@ -254,7 +256,7 @@ def intt_plain(x, tb: dict, limb_slice=None):
                        tb["bitrev"][n1], q)
     x = x.reshape(x.shape[:-2] + (N,))
     return ma.shoup_mul(x, _sl(tb["psiinv_n_pl"], limb_slice),
-                        _sl(tb["psiinv_n_sh"], limb_slice), q)
+                        _sl(tb["psiinv_n_sh"], limb_slice), q).to(torch.int32)
 
 
 def ntt(x, tb: dict, limb_slice=None):

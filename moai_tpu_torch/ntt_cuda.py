@@ -6,7 +6,7 @@ with a plain C interface at first use and loaded with ctypes
 without the CUDA toolkit imports this module and only fails when a kernel
 is asked for.
 
-``ntt_cuda``/``intt_cuda`` take a CUDA int64 tensor ``[..., L_act, N]``,
+``ntt_cuda``/``intt_cuda`` take a CUDA int32 tensor ``[..., L_act, N]``,
 2^9 <= N <= 2^16, and launch the kernels, or raise; they never fall back to
 the plain transforms of ``ntt.py``.  A call is two device kernels, the two
 passes of the 4-step split N = n1 * n2 (``ntt._split``), which hand each
@@ -117,8 +117,8 @@ def _check(x: torch.Tensor, tables: CudaNttTables, limb_slice):
     if not x.is_cuda:
         raise ValueError("the NTT kernels take a CUDA tensor; the plain "
                          "transforms are ntt.ntt_plain/intt_plain")
-    if x.dtype != torch.int64:
-        raise TypeError(f"residues must be int64, got {x.dtype}")
+    if x.dtype != torch.int32:
+        raise TypeError(f"residues must be int32, got {x.dtype}")
     if x.dim() < 2 or n != tables.N:
         raise ValueError(f"shape {tuple(x.shape)} is not [..., L, {tables.N}]")
     if not x.is_contiguous():

@@ -9,8 +9,9 @@ Port of ``moai_tpu/ops/matmul.py``:
   A V, baby-step/giant-step.
 
 Each matmul consumes one composite level.  The sums over a batch axis
-accumulate canonical residues in int64 and reduce once, which gives the
-same canonical residue as the JAX package's pairwise ``add_mod`` tree.
+accumulate canonical int32 residues in int64 (``torch.sum``'s result
+type) and reduce once, back to int32, which gives the same canonical
+residue as the JAX package's pairwise ``add_mod`` tree.
 """
 
 from __future__ import annotations
@@ -32,14 +33,14 @@ def _bsgs_split(m: int) -> tuple[int, int]:
 
 
 # bound on the rotated operands ccmm_col_to_diag holds per column chunk
-ROT_OPERAND_BYTES = 4 << 30
+ROT_OPERAND_BYTES = 2 << 30
 
 
 def col_chunk_for(ctx, n_q: int, num_row: int) -> int:
     """Columns per ccmm_col_to_diag chunk: the g+b rotated copies of a
-    chunk, [g+b, chunk, 2, n_q, N] int64, stay within ROT_OPERAND_BYTES."""
+    chunk, [g+b, chunk, 2, n_q, N] int32, stay within ROT_OPERAND_BYTES."""
     g, b = _bsgs_split(num_row)
-    per_col = (g + b) * 2 * n_q * ctx.cfg.N * 8
+    per_col = (g + b) * 2 * n_q * ctx.cfg.N * 4
     return max(1, ROT_OPERAND_BYTES // per_col)
 
 
@@ -66,12 +67,16 @@ def ccmm_diag_steps(num_x: int, num_row: int) -> list[int]:
 def _dyadic_sum(x0, x1, y0, y1, dim: int, q, rinv) -> torch.Tensor:
     """sum over ``dim`` of the 3-poly products (x0 y0, x0 y1 + x1 y0,
     x1 y1), broadcasting x against y; one component is live at a time.
-    Returns [..., 3, L, N] with ``dim`` removed."""
+    Returns int32 [..., 3, L, N] with ``dim`` removed; each sum is taken
+    in int64 and reduced."""
     def s(a, b):
-        return ma.mont_mul(a, b, q, rinv).sum(dim)
+        return ma.mont_mul(a, b, q, rinv).sum(dim)        # int64
+
+    def r(t):
+        return t.remainder_(q).to(torch.int32)
     c1 = s(x0, y1)
-    c1 += s(x1, y0)
-    return torch.stack([s(x0, y0), c1, s(x1, y1)], dim=-3).remainder_(q)
+    c1 = r(c1.add_(s(x1, y0)))
+    return torch.stack([r(s(x0, y0)), c1, r(s(x1, y1))], dim=-3)
 
 
 class CPMM:

@@ -253,8 +253,9 @@ def gelu_sign(ev: Evaluator, x: Ciphertext, breakpoint: float = 3.5,
 
 
 def _sum_leading(data, q):
-    """Modular sum over the leading axis (canonical residues)."""
-    return data.sum(0).remainder_(q)
+    """Modular sum over the leading axis (canonical int32 residues, summed
+    in int64 and reduced back to int32)."""
+    return data.sum(0).remainder_(q).to(torch.int32)
 
 
 def layernorm(ev: Evaluator, x: Ciphertext, gamma: np.ndarray,

@@ -1,8 +1,9 @@
 """CKKS parameter sets, modulus-chain ladder, and precomputed context.
 
 Port of ``moai_tpu/params.py``.  The host tables (numpy uint32) are built
-exactly as in the JAX package; ``Context.dev`` holds them as int64 tensors
-on the context's device, together with the NTT tables: those of the plain
+exactly as in the JAX package; ``Context.dev`` holds them as int32 tensors
+(every entry is a residue below 2^30, the port's at-rest format) on the
+context's device, together with the NTT tables: those of the plain
 transforms always, and on a CUDA device also the kernels' tables
 (``dev["ntt"]["cuda"]``), which is where ``ntt.ntt`` finds them.
 
@@ -237,8 +238,8 @@ class Context:
 
     # -- device tables -----------------------------------------------------
     def _device_tables(self) -> dict:
-        def t(a):
-            return torch.from_numpy(np.asarray(a).astype(np.int64)).to(
+        def t(a):                      # residues below 2^30: int32, exact
+            return torch.from_numpy(np.asarray(a).astype(np.int32)).to(
                 self.device)
         ntt_dev = self.ntt.to(self.device)
         if self.device.type == "cuda":

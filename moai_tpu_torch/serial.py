@@ -5,8 +5,10 @@ the other's files: one zip holds ``header.json`` (the kind, ``format_version``
 1 and, where given, the full ``CKKSConfig``, from which a load in a fresh
 process rebuilds the exact Context) and one ``.npy`` member per array under
 the same member names.  Residues are stored as uint32, as the JAX package
-holds them; this package holds the same Montgomery values as int64 tensors
-(or int32 for switching keys, ``dtype=``).
+holds them; this package holds the same Montgomery values (below 2^30) as
+int32 tensors, so a save or a load is a checked reinterpretation of the
+same 32-bit words (switching keys load as int64 copies on request,
+``dtype=``).
 
 Two departures in how a file is written, none in what it holds:
 
@@ -52,9 +54,12 @@ def _cfg_from_dict(d: dict) -> CKKSConfig:
 
 
 def _host(a) -> np.ndarray:
-    """A residue tensor (int64 or int32, any device) -> uint32 numpy; a
+    """A residue tensor (int32, or int64 with the same values; any device)
+    -> uint32 numpy, after checking that every value lies in [0, 2^31); a
     numpy array (key coefficients, Galois permutations) as it is."""
     if isinstance(a, torch.Tensor):
+        if a.numel() and (int(a.min()) < 0 or int(a.max()) >= 1 << 31):
+            raise ValueError("residues outside [0, 2^31)")
         return a.to(torch.int32).cpu().numpy().view(np.uint32)
     return np.asarray(a)
 
@@ -87,12 +92,16 @@ def _load(path: str, kind: str):
         yield header, read
 
 
-def _residues(a: np.ndarray, device, dtype=torch.int64) -> torch.Tensor:
-    """uint32 residues -> a tensor of ``dtype`` on ``device`` (every
-    residue is below 2^30, so its int32 view is the same number)."""
+def _residues(a: np.ndarray, device, dtype=torch.int32) -> torch.Tensor:
+    """uint32 residues -> a tensor of ``dtype`` on ``device``: the int32
+    view of the same words, checked on ``device`` to be non-negative (every
+    residue is below 2^30, so the view is the same number)."""
     if a.dtype != np.uint32:
         raise ValueError(f"residues stored as {a.dtype}, not uint32")
-    return torch.from_numpy(a.view(np.int32)).to(device).to(dtype)
+    t = torch.from_numpy(a.view(np.int32)).to(device)
+    if t.numel() and int(t.min()) < 0:
+        raise ValueError("a stored residue is at or above 2^31")
+    return t.to(dtype)
 
 
 # -- context ----------------------------------------------------------------
@@ -164,7 +173,7 @@ def save_kswitch_key(path: str, key: KSwitchKey) -> None:
 
 
 def load_kswitch_key(path: str, device="cuda",
-                     dtype: torch.dtype = torch.int64) -> KSwitchKey:
+                     dtype: torch.dtype = torch.int32) -> KSwitchKey:
     dev = resolve_device(device)
     with _load(path, "kswitch_key") as (_, read):
         return KSwitchKey(_residues(read("data"), dev, dtype))
@@ -180,7 +189,7 @@ def save_galois_keys(path: str, gks: GaloisKeys) -> None:
 
 
 def load_galois_keys(path: str, device="cuda",
-                     dtype: torch.dtype = torch.int64) -> GaloisKeys:
+                     dtype: torch.dtype = torch.int32) -> GaloisKeys:
     dev = resolve_device(device)
     keys, perms = {}, {}
     with _load(path, "galois_keys") as (h, read):

@@ -1,5 +1,6 @@
 """moai_tpu_torch on a CUDA card: the NTT kernels and the limb-arithmetic
-kernels against their plain versions, a small encrypted head against the
+kernels against their plain versions (int32 residues, the port's at-rest
+format; every wrapper refuses int64), a small encrypted head against the
 float64 oracle, a small bootstrap against the same bootstrap on the CPU,
 serial loads onto the card against loads onto the CPU, and a small
 two-layer model resumed from its layer-0 checkpoint against the same on
@@ -46,7 +47,8 @@ def test_kernels_match_plain(card, logN, sl):
     ctx = Context(dataclasses.replace(_test_config(), logN=logN), device=card)
     tb = ctx.dev["ntt"]
     lo, hi = sl or (0, ctx.L + ctx.K)
-    x = torch.stack([torch.randint(0, q, (3, 2, ctx.cfg.N), device=card)
+    x = torch.stack([torch.randint(0, q, (3, 2, ctx.cfg.N), device=card,
+                                   dtype=torch.int32)
                      for q in ctx.all_primes[lo:hi]], dim=-2)
     n0 = dict(ntt_cuda.launches)
     fwd = ntt(x, tb, sl)                       # dispatches to the kernel
@@ -59,13 +61,26 @@ def test_kernels_match_plain(card, logN, sl):
 
 
 def _residues(qs, lead, N, gen):
-    """Canonical residues [*lead, len(qs), N] on qs' device, with 0, 1 and
-    q - 1 in the first columns and q - 1 over the first row's rest."""
+    """Canonical int32 residues [*lead, len(qs), N] on qs' device, with 0,
+    1 and q - 1 in the first columns and q - 1 over the first row's
+    rest."""
     x = torch.randint(0, 1 << 62, lead + (len(qs), N), device=qs.device,
-                      generator=gen).remainder_(qs.reshape(-1, 1))
+                      generator=gen).remainder_(qs.reshape(-1, 1)).int()
     x[..., 0], x[..., 1] = 0, 1
     x[..., 2] = qs - 1
     x.reshape(-1, len(qs), N)[0, :, 3:] = qs.reshape(-1, 1) - 1
+    return x
+
+
+def _past_q(qs, lead, N, gen):
+    """int32 values in [q, 2^31) per limb row (the kernels' domain beyond
+    the canonical residues), with q, 2q - 1, 2^30 and 2^31 - 1 first."""
+    lo = qs.reshape(-1, 1).long()
+    x = (lo + torch.randint(0, 1 << 62, lead + (len(qs), N), device=qs.device,
+                            generator=gen).remainder_((1 << 31) - lo)).int()
+    x[..., 0] = qs
+    x[..., 1] = 2 * qs - 1
+    x[..., 2], x[..., 3] = 1 << 30, (1 << 31) - 1
     return x
 
 
@@ -73,11 +88,10 @@ def _residues(qs, lead, N, gen):
 def test_limb_kernels_match_plain(card, logN):
     """Every limb kernel torch.equal to its plain version on the card: the
     elementwise family on each broadcast pattern of its call sites (and on
-    operands past the residues' range), base_conv at the key-switch
-    decomposition of every level, the mod-down and ModRaise's conversion,
-    ks_mac with int64 and int32 keys, with and without the hoisted
-    permutation, and diag_mac, then the edge shapes of _limb_edge_shapes;
-    each kernel launched."""
+    operands in [q, 2^31)), base_conv at the key-switch decomposition of
+    every level, the mod-down and ModRaise's conversion, ks_mac with and
+    without the hoisted permutation, and diag_mac, then the edge shapes of
+    _limb_edge_shapes; each kernel launched."""
     ctx = Context(dataclasses.replace(_test_config(), logN=logN), device=card)
     dv, L, K, N = ctx.dev, ctx.L, ctx.K, ctx.cfg.N
     gen = torch.Generator(card).manual_seed(logN)
@@ -89,9 +103,9 @@ def test_limb_kernels_match_plain(card, logN):
     a, b = res(dv["q"][:L], (2, 2)), res(dv["q"][:L], (2, 2))
     col = res(dv["q"][:L], (2, 1))[..., :1]    # [C, 1, L, 1]
     qe, re_ = int(dv["q"][L - 1]), int(dv["rinv"][L - 1])
-    u = torch.randint(0, 1 << 30, (2, 1, N), device=card, generator=gen)
-    wide = torch.randint(-(1 << 62), 1 << 62, a.shape, device=card,
-                         generator=gen)
+    u = torch.randint(0, 1 << 30, (2, 1, N), device=card, generator=gen,
+                      dtype=torch.int32)
+    wide = _past_q(dv["q"][:L], (2, 2), N, gen)
     r2 = dv["r2"][:L].reshape(-1, 1)
     pairs = [
         (ma.add_mod(a, b, q), ma.add_mod_plain(a, b, q)),
@@ -129,24 +143,22 @@ def test_limb_kernels_match_plain(card, logN):
                 dv["ks_hatinv_mont"][n_q, :D], hat_t, qt, rt)
         assert torch.equal(ma.base_conv(*args), ma.base_conv_plain(*args))
         y = res(qt.reshape(-1), (2, D))
-        for dtype in (torch.int64, torch.int32):
-            keys = [res(qall, (ctx.dnum, 2)).to(dtype)
-                    for _ in range(3)]
-            perm = torch.stack([torch.randperm(N, device=card,
-                                               generator=gen)
-                                for _ in keys])
-            for kw in ({"keys": keys[0]}, {"keys": keys, "perm": perm}):
-                for got, want in zip(
-                        ma.ks_mac(y, kw["keys"], L, qt, rt, kw.get("perm")),
-                        ma.ks_mac_plain(y, kw["keys"], L, qt, rt,
-                                        kw.get("perm"))):
-                    assert torch.equal(got, want), (n_q, dtype)
+        keys = [res(qall, (ctx.dnum, 2)) for _ in range(3)]
+        perm = torch.stack([torch.randperm(N, device=card, generator=gen)
+                            for _ in keys])
+        for kw in ({"keys": keys[0]}, {"keys": keys, "perm": perm}):
+            for got, want in zip(
+                    ma.ks_mac(y, kw["keys"], L, qt, rt, kw.get("perm")),
+                    ma.ks_mac_plain(y, kw["keys"], L, qt, rt,
+                                    kw.get("perm"))):
+                assert torch.equal(got, want), n_q
     cp = res(qall[L:], (2, 2))
     args = (cp, qall[L:], dv["rinv"][L:], dv["pdown_hatinv_mont"],
             dv["pdown_hat_modq_mm"][None, :, :L - 1], q[:L - 1], rinv[:L - 1])
     assert torch.equal(ma.base_conv(*args), ma.base_conv_plain(*args))
     lam = res(qall[:2], (2, 2))
-    k = torch.randint(0, 3, (2, 2, N), device=card, generator=gen)
+    k = torch.randint(0, 3, (2, 2, N), device=card, generator=gen,
+                      dtype=torch.int32)
     hat = res(qall[:L], (2,))[..., 0][None].contiguous()
     args = (lam, None, None, None, hat, q, rinv, k, dv["r1"][:L])
     assert torch.equal(ma.base_conv(*args), ma.base_conv_plain(*args))
@@ -173,7 +185,7 @@ def _limb_edge_shapes(ctx, res):
     bucket of both kernels (base_conv digits of 8, 16, 20 and 32 inputs,
     ks_mac of 3, 7 and 13 digits, T not a multiple of the tile of four) on
     primes just below 2^30, and base_conv's input conversion on operands
-    past the residues' range."""
+    in [q, 2^31) and ModRaise's term on negative k."""
     dv, L, N = ctx.dev, ctx.L, ctx.cfg.N
     card = dv["q"].device
     qall = dv["q"]
@@ -197,53 +209,138 @@ def _limb_edge_shapes(ctx, res):
              ("B", B))
     R = limb_cuda.MAX_ROT
     perm = _galois_perms(N, range(1, R + 1), card)
-    keys = [res(qall, (ctx.dnum, 2)).to(torch.int32) for _ in range(2)] * (
-        R // 2)
+    keys = [res(qall, (ctx.dnum, 2)) for _ in range(2)] * (R // 2)
     y = res(qt.reshape(-1), (2, D))
     same(ma.ks_mac(y, keys, L, qt, rt, perm),
          ma.ks_mac_plain(y, keys, L, qt, rt, perm), "MAX_ROT")
     del keys, perm, y
 
     big = ntt_primes_near(29.99, 2, 40)
-    primes = torch.tensor(big, device=card)
+    primes = torch.tensor(big, device=card, dtype=torch.int32)
     rinvs = torch.tensor([ma.mont_constants(p)["rinv"] for p in big],
-                         device=card)
+                         device=card, dtype=torch.int32)
     for D, A, S, nt in ((1, 8, 8, 5), (1, 16, 16, 7), (2, 20, 33, 5),
                         (1, 32, 32, 6)):
         pad = torch.arange(D * A, device=card) % S
         tq = primes[S:S + nt]
         hatinv = torch.randint(0, 1 << 62, (D * A,), device=card).remainder_(
-            primes[pad])
+            primes[pad]).int()
         hat = torch.randint(0, 1 << 62, (D, A, nt), device=card).remainder_(
-            tq)
+            tq).int()
         args = (res(primes[:S], (3,)), primes[pad], rinvs[pad], hatinv, hat,
                 tq.reshape(-1, 1), rinvs[S:S + nt].reshape(-1, 1))
         same(ma.base_conv(*args), ma.base_conv_plain(*args), (D, A, S, nt))
-    # the conversion's general path: inputs past 2^32 and 2^62, a hat
-    # inverse past 2^31
+    # the conversion on inputs in [q, 2^31) (the int32 lanes' range), and
+    # ModRaise's term on negative k
     x = res(primes[:5], (3,))
-    x[0, :, 5:9] = torch.tensor([1 << 32, (1 << 40) + 3, 1 << 62,
-                                 (1 << 63) - 1], device=card)
+    x[0, :, 5:9] = torch.tensor([big[0], (1 << 30) + 3, (1 << 31) - 2,
+                                 (1 << 31) - 1], device=card)
     hatinv = torch.randint(0, 1 << 62, (5,), device=card).remainder_(
-        primes[:5])
-    hatinv[2] = (1 << 31) + 7
+        primes[:5]).int()
     hat = torch.randint(0, 1 << 62, (1, 5, 3), device=card).remainder_(
-        primes[5:8])
+        primes[5:8]).int()
     args = (x, primes[:5], rinvs[:5], hatinv, hat,
             primes[5:8].reshape(-1, 1), rinvs[5:8].reshape(-1, 1))
-    same(ma.base_conv(*args), ma.base_conv_plain(*args), "general path")
+    same(ma.base_conv(*args), ma.base_conv_plain(*args), "past q")
+    k = torch.randint(-3, 4, (3, N), device=card, dtype=torch.int32)
+    kq = primes[5:8] - 1
+    args = (res(primes[:5], (3,)), None, None, None, hat,
+            primes[5:8].reshape(-1, 1),
+            rinvs[5:8].reshape(-1, 1), k, kq)
+    same(ma.base_conv(*args), ma.base_conv_plain(*args), "negative k")
     q_limbs, n_q, kp = 20, 3, 4
     KL = q_limbs + kp
     tq = torch.cat([primes[:n_q], primes[q_limbs:KL]]).reshape(-1, 1)
     trinv = torch.cat([rinvs[:n_q], rinvs[q_limbs:KL]]).reshape(-1, 1)
     perm = _galois_perms(N, (3, 7), card)
-    for D, dt in ((3, torch.int64), (7, torch.int32), (13, torch.int64)):
+    for D in (3, 7, 13):
         y = res(tq.reshape(-1), (3, D))
-        keys = [res(primes[:KL], (D, 2)).to(dt) for _ in range(2)]
+        keys = [res(primes[:KL], (D, 2)) for _ in range(2)]
         same(ma.ks_mac(y, keys[0], q_limbs, tq, trinv),
              ma.ks_mac_plain(y, keys[0], q_limbs, tq, trinv), D)
         same(ma.ks_mac(y, keys, q_limbs, tq, trinv, perm),
              ma.ks_mac_plain(y, keys, q_limbs, tq, trinv, perm), D)
+
+
+@pytest.mark.parametrize("logN", range(9, 17))
+def test_limb_ew_and_diag_mac_on_int32_lanes(card, logN):
+    """limb_ew's every op on its vector and scalar paths: operands
+    contiguous from a 16-byte boundary, one element off it, broadcast
+    along N (per-limb and per-column constants), Python ints, a modulus
+    varying along the innermost dim; canonical residues and values in [q,
+    2^31); then diag_mac over 1 to 32 diagonals (each bucket of its term
+    count), all torch.equal to the plain versions."""
+    ctx = Context(dataclasses.replace(_test_config(), logN=logN), device=card)
+    dv, L, N = ctx.dev, ctx.L, ctx.cfg.N
+    gen = torch.Generator(card).manual_seed(100 + logN)
+    qs = dv["q"][:L]
+    q, rinv = qs.reshape(-1, 1), dv["rinv"][:L].reshape(-1, 1)
+    canon = [_residues(qs, (2, 2), N, gen) for _ in range(3)]
+    past = [_past_q(qs, (2, 2), N, gen) for _ in range(3)]
+    col = _residues(qs, (2, 1), N, gen)[..., :1]
+    qe = int(qs[-1])
+    n0 = limb_cuda.launches["limb_ew"]
+    calls = 0
+    for a, b, c in (canon, past, (canon[0], past[1], canon[2])):
+        cases = [(a, b, c, q), (a, col, col, q), (a, 7, 99, q),
+                 (a[..., 1:], b[..., 1:], c[..., 1:], q),
+                 (a[..., 1:N - 3], b[..., 3:N - 1], c[..., :N - 4], q),
+                 (a.transpose(-1, -2), b.transpose(-1, -2),
+                  c.transpose(-1, -2), qs),
+                 (a[..., -1:, :], qe >> 1, b[..., -1:, :], qe)]
+        for x, y, z, m in cases:
+            r = rinv if isinstance(m, torch.Tensor) and m.dim() == 2 else (
+                dv["rinv"][:L] if isinstance(m, torch.Tensor) else
+                ma.mont_constants(m)["rinv"])
+            for got, want in (
+                    (ma.add_mod(x, y, m), ma.add_mod_plain(x, y, m)),
+                    (ma.sub_mod(x, y, m), ma.sub_mod_plain(x, y, m)),
+                    (ma.neg_mod(x, m), ma.neg_mod_plain(x, m)),
+                    (ma.mont_mul(x, y, m, r), ma.mont_mul_plain(x, y, m, r)),
+                    (ma.from_mont(x, m, r), ma.from_mont_plain(x, m, r)),
+                    (ma.sub_mont_mul(x, y, z, m, r),
+                     ma.sub_mont_mul_plain(x, y, z, m, r))):
+                assert got.dtype == torch.int32
+                assert torch.equal(got, want), (x.shape, x.stride())
+                calls += 1
+    assert limb_cuda.launches["limb_ew"] - n0 == calls
+    for J in (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 31, 32):
+        cts = [_residues(qs, (2, 2), N, gen) for _ in range(J)]
+        pts = _residues(qs, (J,), N, gen)
+        got = ma.diag_mac(cts, pts, q, rinv)
+        assert got.dtype == torch.int32
+        assert torch.equal(got, ma.diag_mac_plain(cts, pts, q, rinv)), J
+
+
+def test_wrappers_refuse_int64(card):
+    """Each kernel wrapper raises TypeError on an int64 residue tensor (the
+    data and the per-limb tables alike)."""
+    ctx = Context(_test_config(), device=card)
+    dv, L, N = ctx.dev, ctx.L, ctx.cfg.N
+    gen = torch.Generator(card).manual_seed(5)
+    q = dv["q"][:L].reshape(-1, 1)
+    x = _residues(dv["q"][:L], (2,), N, gen)
+    wide = x.long()
+    tb = dv["ntt"]["cuda"]
+    hat = dv["ks_hat_mm"][L, :1, :, :2]
+    y = _residues(dv["q"][:L], (1, 1), N, gen)
+    key = _residues(dv["q"], (ctx.dnum, 2), N, gen)
+    calls = [
+        lambda: limb_cuda.limb_ew("add", wide, x, None, q),
+        lambda: limb_cuda.limb_ew("mul", x, x, None, q.long()),
+        lambda: ntt_cuda.ntt_cuda(wide, tb, (0, L)),
+        lambda: ntt_cuda.intt_cuda(wide, tb, (0, L)),
+        lambda: limb_cuda.base_conv(wide, dv["ks_q_pad"], None, hat, q[:2]),
+        lambda: limb_cuda.base_conv(x, dv["ks_q_pad"], None, hat.long(),
+                                    q[:2]),
+        lambda: limb_cuda.ks_mac(y.long(), key[:, :, :L], L, q),
+        lambda: limb_cuda.ks_mac(y, key[:, :, :L].long(), L, q),
+        lambda: limb_cuda.diag_mac([wide], x[:1], q),
+        lambda: limb_cuda.diag_mac([x], wide[:1], q),
+    ]
+    for i, call in enumerate(calls):
+        with pytest.raises(TypeError):
+            call()
 
 
 def test_small_head_on_card(card):

@@ -87,7 +87,7 @@ def test_chunked_layer_identical(layer, out, monkeypatch, col_chunk):
     """LayerNorm and the FFN in column chunks (uneven ones included), from
     a lowered byte bound: the same residues as whole, refreshes and all."""
     assert layer.layer.col_chunk >= DIMS.d_inter       # the fixture: whole
-    per_col = 2 * layer.ctx.L * layer.ctx.cfg.N * 8
+    per_col = 2 * layer.ctx.L * layer.ctx.cfg.N * 4       # int32 residues
     monkeypatch.setattr(bert, "LAYER_CHUNK_BYTES",
                         col_chunk * per_col + per_col // 2)
     got = build_layer(LOGN, LEVELS, DIMS, PLAN, INPUTS, device="cpu")

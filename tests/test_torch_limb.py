@@ -3,19 +3,20 @@ their plain versions (moai_tpu_torch/mod_arith.py).
 
 The kernels run only on a CUDA card (tests/test_torch_cuda.py holds them
 torch.equal to the plain versions there).  Here each kernel's exact
-algorithm is modelled in numpy, step for step: -q^-1 mod 2^32 by Newton
-from q, REDC with R = 2^32, the fast paths and the remainder branch of the
-elementwise ops, groups of four products per REDC in ks_mac and diag_mac
-(asserting that every group sum stays below q * 2^32, REDC's input range),
-base_conv's register tiles, lazy 64-bit sums of up to 16 products
-(asserted not to wrap) and two-step REDC, each kernel's flat index maps
-and compile-time buckets, the canonical 32-bit sums.  The models must
-equal the plain versions on every prime of flagship_config and
-head_config(15, 13), at their largest digit count, digit size and
-special-prime count, on edge values (0, 1, q - 1, inputs >= q where the
-call sites pass them) and on the operands past the residues' range that
-only the remainder branch sees.  The launch layout of the elementwise
-kernel (collapsed broadcast dims, strides, rows) is replayed on each
+algorithm is modelled in numpy, step for step, on its int32 lanes (values
+in [0, 2^31)): -q^-1 mod 2^32 by Newton from q, REDC with R = 2^32, the
+elementwise ops' 32-bit arithmetic and the remainder branch past [0, 2q),
+groups of four products per REDC in ks_mac and diag_mac (asserting that
+every group sum stays below q * 2^32, REDC's input range), base_conv's
+register tiles, lazy 64-bit sums of up to 16 products (asserted not to
+wrap) and two-step REDC, each kernel's flat index maps and compile-time
+buckets (diag_mac's coefficients per thread by term count), the canonical
+32-bit sums.  The models must equal the plain versions on every prime of
+flagship_config and head_config(15, 13), at their largest digit count,
+digit size and special-prime count, on edge values (0, 1, q - 1, inputs
+in [q, 2^31) where the domain takes them).  The launch layout of the
+elementwise kernel (collapsed broadcast dims, strides, rows, the vector
+and scalar paths, a modulus per row or per element) is replayed on each
 broadcast pattern of the call sites, and CPU tensors are shown to take the
 plain versions.  No JAX."""
 
@@ -62,54 +63,63 @@ def redc(T, q):
     return (T + m * q) >> U64(32)
 
 
-def floor_mod(x, q):
-    return np.remainder(np.asarray(x, I64), np.asarray(q, I64))
+TWO31 = 1 << 31
 
 
-def reduce(s, q):
-    q = np.asarray(q, I64)
-    s = np.where(s >= q, s - q, np.where(s < 0, s + q, s))
-    return np.where((s >= 0) & (s < q), s, floor_mod(s, q))
+def lanes(x):
+    """int32 lanes' values as uint64, asserting the kernels' domain."""
+    x = np.asarray(x, I64)
+    assert ((x >= 0) & (x < TWO31)).all(), "outside [0, 2^31)"
+    return x.astype(U64)
+
+
+def reduce(t, q):
+    """limb.cu's reduce: t mod q for t < 2^32, one subtract below 2q, else
+    the remainder."""
+    t, q = np.asarray(t, U64), np.asarray(q, U64)
+    assert (t < U64(TWO32)).all()
+    t = np.where(t >= q, t - q, t)
+    return np.where(t < q, t, t % q)
+
+
+def k_sub(x, y, q):
+    """limb.cu's sub_mod on uint32: d = x - y mod 2^32, plus q where
+    negative, the floored remainder where still outside [0, q)."""
+    x, y, q = lanes(x), lanes(y), np.asarray(q, U64)
+    d = (x - y) & U64(TWO32 - 1)
+    d = np.where(d >= U64(TWO31), (d + q) & U64(TWO32 - 1), d)
+    slow = np.remainder(x.astype(I64) - y.astype(I64), q.astype(I64))
+    return np.where(d < q, d, slow.astype(U64))
 
 
 def k_mont_mul(a, b, q):
-    ua, ub = np.asarray(a, I64).view(U64), np.asarray(b, I64).view(U64)
+    """One 32x32 -> 64 product and one REDC (below 2^30 + q), then
+    reduce."""
     q = np.asarray(q, U64)
-    T = ua * ub
-    fast = ((ua | ub) < U64(TWO32)) & (T < U64(TWO63))
-    t = redc(np.where(fast, T, U64(0)), q)
-    t = np.where(t >= q, t - q, t)
-    t = np.where(t < q, t, t % q)
-    slow = redc(floor_mod(T.view(I64), q).astype(U64), q)
-    slow = np.where(slow >= q, slow - q, slow)
-    return np.where(fast, t, slow).astype(I64)
+    t = redc(lanes(a) * lanes(b), q)
+    assert (t < U64(TWO31)).all()
+    return reduce(t, q).astype(I64)
 
 
 def k_from_mont(x, q):
-    ux, q = np.asarray(x, I64).view(U64), np.asarray(q, U64)
-    fast = ux < U64(TWO32)
-    t = redc(np.where(fast, ux, U64(0)), q)
-    t = np.where(t >= q, t - q, t)
-    rinv = (q * neg_qinv(q) + U64(1)) >> U64(32)
-    slow = floor_mod((ux * rinv).view(I64), q.astype(I64))
-    return np.where(fast, t.astype(I64), slow)
+    q = np.asarray(q, U64)
+    t = redc(lanes(x), q)
+    assert (t <= q).all()
+    return reduce(t, q).astype(I64)
 
 
 def k_ew(op, a, b, c, q):
-    a, b, c = (np.asarray(v, I64) for v in (a, b, c))
-    wrap = lambda u: u.view(I64)
-    ua, ub = a.view(U64), b.view(U64)
     if op == "add":
-        return reduce(wrap(ua + ub), q)
+        return reduce(lanes(a) + lanes(b), q).astype(I64)
     if op == "sub":
-        return reduce(wrap(ua - ub), q)
+        return k_sub(a, b, q).astype(I64)
     if op == "neg":
-        return reduce(wrap(U64(0) - ua), q)
+        return k_sub(np.zeros_like(np.asarray(a)), a, q).astype(I64)
     if op == "mul":
         return k_mont_mul(a, b, q)
     if op == "from_mont":
         return k_from_mont(a, q)
-    return k_mont_mul(reduce(wrap(ua - ub), q), c, q)      # sub_mul
+    return k_mont_mul(k_sub(a, b, q), c, q)                # sub_mul
 
 
 def group_sum(lam, hat, q):
@@ -173,14 +183,21 @@ def mac_bucket(D):
 
 def to_lam(v, q, hatinv):
     """base_conv's input conversion, from_mont(mont_mul(v, hatinv)): one
-    REDC of v * (hatinv * 2^-32 mod q) where the torch ops' int64 product
-    is exact (v < 2^32, hatinv < 2^31), else the elementwise ops' path."""
-    v = np.asarray(v, I64)
-    hp = int(k_from_mont(hatinv, q))
-    lean = (v.view(U64) < U64(TWO32)) & (0 <= hatinv < 1 << 31)
-    fast = redc_canon(np.where(lean, v, 0).astype(U64) * U64(hp), U64(q))
-    slow = k_from_mont(k_mont_mul(v, hatinv, q), q)
-    return np.where(lean, fast.astype(I64), slow)
+    REDC of v * (hatinv * 2^-32 mod q), below 2q for any v in [0, 2^31),
+    made canonical; hatinv * 2^-32 mod q is one REDC of hatinv, made
+    canonical, per block."""
+    hp = k_from_mont(hatinv, q).astype(U64)
+    T = lanes(v) * hp
+    assert (T < U64(q) * U64(TWO32)).all()
+    return redc_canon(T, U64(q)).astype(I64)
+
+
+def k_mont_mul_k(k, w, q):
+    """base_conv's ModRaise term: any int32 k (a negative one taken as
+    k % q + q, C's truncated remainder) times w, one REDC."""
+    k = np.asarray(k, I64)
+    u = np.where(k >= 0, k, np.fmod(k, q) + q)
+    return k_mont_mul(u, w, q)
 
 
 def k_base_conv(x, src_q, hatinv, hat, tq, k=None, kq=None):
@@ -246,7 +263,7 @@ def k_base_conv(x, src_q, hatinv, hat, tq, k=None, kq=None):
                 r = res[j]
                 if k is not None:
                     q = int(qs[j])
-                    kt = k_mont_mul(kv, int(s_kq[t]), q).astype(U64)
+                    kt = k_mont_mul_k(kv, int(s_kq[t]), q).astype(U64)
                     r = np.where(r >= kt, r - kt, r + U64(q) - kt)
                 for c in (0, 1):
                     out[(bd * T + t) * Nn + n + c] = r[c].astype(I64)
@@ -307,13 +324,41 @@ def k_ks_mac(y, keys, q_limbs, tq, perm=None):
     return out[0], out[1]
 
 
+DIAG_THREADS = 128
+
+
+def diag_lanes(terms):
+    """diag_mac's coefficients per thread for a launch's term count (the
+    launcher's compile-time buckets of 8, 16 and 32 terms)."""
+    return 4 if terms <= 8 else 2 if terms <= 16 else 1
+
+
 def k_diag_mac(cts, pts, q):
-    L = pts.shape[1]
-    out = np.zeros(cts[0].shape, I64)
+    """The diag_mac kernel on flat arrays: block rows over the limbs, each
+    thread's V coefficients n = V (blockIdx.x * 128 + threadIdx.x) of
+    every diagonal loaded once, the walk over the B rows, groups of four
+    terms per REDC, and the flat output index."""
+    J, L, Nn = pts.shape
+    V = diag_lanes(J)
+    assert Nn % 4 == 0
+    B = cts[0].size // (L * Nn)
+    ctf = [np.asarray(c, I64).reshape(-1) for c in cts]
+    ptf = np.asarray(pts, I64).reshape(-1)
+    out = np.full(B * L * Nn, -1, I64)
+    rows = L * Nn
+    blocks = -(-(Nn // V) // DIAG_THREADS)
+    n = V * np.arange(blocks * DIAG_THREADS)
+    n = n[n < Nn]                                  # the threads that work
     for l in range(L):
-        out[..., l, :] = group_sum([ct[..., l, :] for ct in cts],
-                                   [pt[l] for pt in pts], q[l])
-    return out
+        for c in range(V):
+            off = l * Nn + n + c
+            pt = [ptf[j * rows + off] for j in range(J)]
+            for b in range(B):
+                o = b * rows + off
+                out[o] = group_sum([ctf[j][o] for j in range(J)], pt,
+                                   q[l]).astype(I64)
+    assert (out >= 0).all(), "an output was not written"
+    return out.reshape(cts[0].shape)
 
 
 def residues(qs, lead, rng, edges=True, n=N):
@@ -352,26 +397,26 @@ def test_newton_inverse_and_redc_every_prime(ctx):
 
 def test_elementwise_model_equals_plain():
     """Every op of limb_ew on canonical residues, the edges, to_mont's
-    inputs >= q, negative differences, and operands past the residues'
-    range (the remainder branch), on primes of both chains."""
+    inputs >= q, negative differences, and operands in [q, 2^31) (up to
+    the int32 lanes' top, where sums and differences leave [0, 2q) and
+    take the remainder branch), on primes of both chains."""
     rng = np.random.default_rng(7)
     qs = sorted({*Context(head_config(15, 13), device="cpu").all_primes[::7],
                  (1 << 30) - 35, 12289})
     qs = [q for q in qs if q % 2]
-    extra = [0, 1, TWO32 - 1, TWO32, TWO32 + 5, 1 << 40, TWO63 - 1, -1, -7,
-             -(1 << 40), -TWO63, 3 << 61]
+    extra = [0, 1, 1 << 30, (1 << 30) + 1, TWO31 - 2, TWO31 - 1]
     for q in qs:
         c = ma.mont_constants(q)
         edge = np.array([0, 1, q - 1, q, q + 1, 2 * q - 1, (1 << 30) - 1]
                         + extra, I64)
         rnd = rng.integers(0, q, 64)
-        big = rng.integers(-(1 << 62), 1 << 62, 64)
+        big = rng.integers(0, TWO31, 64)
         a = np.concatenate([np.repeat(edge, len(edge)), rnd, big, rnd])
         b = np.concatenate([np.tile(edge, len(edge)), rng.integers(0, q, 64),
                             rng.integers(0, q, 64),
-                            rng.integers(0, TWO32, 64)])
+                            rng.integers(0, TWO31, 64)])
         cc = rng.integers(0, q, len(a))
-        ta, tb, tc = T(a), T(b), T(cc)
+        ta, tb, tc = (T(v).int() for v in (a, b, cc))
         plain = {"add": ma.add_mod_plain(ta, tb, q),
                  "sub": ma.sub_mod_plain(ta, tb, q),
                  "neg": ma.neg_mod_plain(ta, q),
@@ -383,8 +428,8 @@ def test_elementwise_model_equals_plain():
             assert np.array_equal(got, want.numpy()), (op, q)
         # to_mont at the rescale's inputs: u < q_ell for a smaller q_j
         u = np.concatenate([rng.integers(0, 1 << 30, 64),
-                            [(1 << 30) - 1, TWO32 - 1]])
-        want = ma.mont_mul_plain(T(u), c["r2"], q, c["rinv"]).numpy()
+                            [(1 << 30) - 1, TWO31 - 1]])
+        want = ma.mont_mul_plain(T(u).int(), c["r2"], q, c["rinv"]).numpy()
         assert np.array_equal(k_mont_mul(u, c["r2"], q), want)
 
 
@@ -400,8 +445,8 @@ def test_conversions_and_macs_equal_plain(ctx):
     """base_conv at the key-switch decomposition (every digit at the top
     level, partial last digits at lower levels, the levels whose targets
     number 87, 45 and 38, ragged against the tile of four), the mod-down
-    (K limbs) and ModRaise (with k); ks_mac with int64 and int32 keys, with
-    and without the hoisted rotations' real Galois permutations (R = 3),
+    (K limbs) and ModRaise (with k); ks_mac with and without the hoisted
+    rotations' real Galois permutations (R = 3),
     over every active digit, on B = 2 rows and at the top level also on
     B = 1 and B = 3; diag_mac over a giant step of diagonals.  Lazy sums
     are checked against 2^64 and group sums against REDC's range."""
@@ -428,18 +473,17 @@ def test_conversions_and_macs_equal_plain(ctx):
 
         for B in ((2, 1, 3) if n_q == L else (2,)):
             y = residues(tq, (B, D), rng)
-            for dtype in (torch.int64, torch.int32):
-                keys = [T(residues(qall, (ctx.dnum, 2), rng)).to(dtype)
-                        for _ in range(3)]
-                w0, w1 = ma.ks_mac_plain(T(y), keys[0], L, T(tq), trinv)
-                g0, g1 = k_ks_mac(y, keys[0].numpy(), L, tq)
-                assert np.array_equal(g0, w0.numpy()), (n_q, B, dtype)
-                assert np.array_equal(g1, w1.numpy()), (n_q, B, dtype)
-                w0, w1 = ma.ks_mac_plain(T(y), keys, L, T(tq), trinv,
-                                         T(perm))
-                g0, g1 = k_ks_mac(y, [k.numpy() for k in keys], L, tq, perm)
-                assert np.array_equal(g0, w0.numpy()), (n_q, B, dtype)
-                assert np.array_equal(g1, w1.numpy()), (n_q, B, dtype)
+            keys = [T(residues(qall, (ctx.dnum, 2), rng)).int()
+                    for _ in range(3)]
+            w0, w1 = ma.ks_mac_plain(T(y).int(), keys[0], L, T(tq), trinv)
+            g0, g1 = k_ks_mac(y, keys[0].numpy(), L, tq)
+            assert np.array_equal(g0, w0.numpy()), (n_q, B)
+            assert np.array_equal(g1, w1.numpy()), (n_q, B)
+            w0, w1 = ma.ks_mac_plain(T(y).int(), keys, L, T(tq), trinv,
+                                     T(perm))
+            g0, g1 = k_ks_mac(y, [k.numpy() for k in keys], L, tq, perm)
+            assert np.array_equal(g0, w0.numpy()), (n_q, B)
+            assert np.array_equal(g1, w1.numpy()), (n_q, B)
 
     # the mod-down: K special limbs to the n_q limbs of Q
     n_q = L - 3
@@ -476,11 +520,13 @@ def test_conversions_and_macs_equal_plain(ctx):
 
 def test_tile_maps_buckets_and_lazy_groups():
     """The launch maps past one block (N = 1024: four base_conv blocks of
-    256 coefficients; N = 512: two ks_mac blocks), every compile-time
-    bucket of both kernels with its guards, and what the chains never
-    reach: base_conv digits of 16 inputs (one full lazy group), 20 and 32
-    (two groups), odd B, T of 1 to 7 targets; ks_mac with 7 and 13 digits
-    (groups of four past the first) and two rotations."""
+    256 coefficients; N = 512: two ks_mac blocks; diag_mac's blocks of 128
+    threads of 4, 2 or 1 coefficients), every compile-time bucket of the
+    three kernels with its guards, and what the chains never reach:
+    base_conv digits of 16 inputs (one full lazy group), 20 and 32 (two
+    groups), odd B, T of 1 to 7 targets, inputs in [q, 2^31), negative k;
+    ks_mac with 7 and 13 digits (groups of four past the first) and two
+    rotations; diag_mac over 1 to 32 diagonals."""
     rng = np.random.default_rng(3)
     ctx = Context(head_config(15, 13), device="cpu")
     dv = ctx.dev
@@ -498,17 +544,15 @@ def test_tile_maps_buckets_and_lazy_groups():
                                   dv["rinv"][S:S + nt])
         got = k_base_conv(x, qall[pad], hatinv.numpy(), hat.numpy(), tq)
         assert np.array_equal(got, want.numpy()), (D, A, S, nt)
-    # the conversion's general path: inputs past 2^32 (and past 2^62, where
-    # the torch ops' int64 products wrap) and a hat inverse past 2^31
+    # the conversion on inputs in [q, 2^31), up to the int32 lanes' top
     x = residues(qall[:5], (3,), rng, n=n)
-    x[0, :, 5:9] = [1 << 32, (1 << 40) + 3, 1 << 62, (1 << 63) - 1]
+    x[0, :, 5:9] = [qall[0], (1 << 30) + 3, TWO31 - 2, TWO31 - 1]
     hatinv = rng.integers(0, qall[:5])
-    hatinv[2] = (1 << 31) + 7
     hat = T(rng.integers(0, qall[5:8], (1, 5, 3)))
-    want = ma.base_conv_plain(T(x), T(qall[:5]), dv["rinv"][:5], T(hatinv),
-                              hat, T(qall[5:8]), dv["rinv"][5:8])
+    want = ma.base_conv_plain(T(x).int(), T(qall[:5]), dv["rinv"][:5],
+                              T(hatinv), hat, T(qall[5:8]), dv["rinv"][5:8])
     got = k_base_conv(x, qall[:5], hatinv, hat.numpy(), qall[5:8])
-    assert np.array_equal(got, want.numpy()), "general path"
+    assert np.array_equal(got, want.numpy()), "inputs past q"
 
     # ModRaise's form at N = 1024: two inputs, no hatinv, less k * kq
     lam = residues(qall[:2], (3,), rng, n=n)
@@ -527,10 +571,10 @@ def test_tile_maps_buckets_and_lazy_groups():
     tq = np.concatenate([qall[:n_q], qall[q_limbs:KL]])
     trinv = torch.cat([dv["rinv"][:n_q], dv["rinv"][q_limbs:KL]])
     perm = galois_perms(n, (3, 7))
-    for D, dt in ((7, torch.int64), (13, torch.int32)):
+    for D in (7, 13):
         assert mac_bucket(D) in (8, 16)
         y = residues(tq, (3, D), rng, n=n)
-        keys = [T(residues(qall[:KL], (D, 2), rng, n=n)).to(dt)
+        keys = [T(residues(qall[:KL], (D, 2), rng, n=n)).int()
                 for _ in perm]
         w = ma.ks_mac_plain(T(y), keys[0], q_limbs, T(tq), trinv)
         g = k_ks_mac(y, keys[0].numpy(), q_limbs, tq)
@@ -539,12 +583,36 @@ def test_tile_maps_buckets_and_lazy_groups():
         g = k_ks_mac(y, [k.numpy() for k in keys], q_limbs, tq, perm)
         assert all(np.array_equal(a, b.numpy()) for a, b in zip(g, w)), D
 
+    # diag_mac at every bucket of its term count, past one block
+    n, L = 1024, 3
+    q = T(qall[:L]).reshape(-1, 1)
+    for J in (1, 4, 5, 8, 9, 16, 17, 32):
+        cts = [residues(qall[:L], (2, 2), rng, n=n) for _ in range(J)]
+        pts = residues(qall[:L], (J,), rng, n=n)
+        want = ma.diag_mac_plain([T(c).int() for c in cts], T(pts).int(), q,
+                                 dv["rinv"][:L].reshape(-1, 1))
+        assert np.array_equal(k_diag_mac(cts, pts, qall[:L]),
+                              want.numpy()), J
+
+
+EW_THREADS, EW_VECS = 256, 2
+EW_SPAN = EW_THREADS * EW_VECS * 4
+EW_INPUTS = {"add": 2, "sub": 2, "neg": 1, "mul": 2, "from_mont": 1,
+             "sub_mul": 3}
+
 
 def _replay_layout(op, ops):
-    """limb_ew's launch as the kernel walks it (rows split over the outer
-    collapsed dims, each row's inner elements at the inner strides), in
-    numpy, from ew_layout's sizes and strides."""
+    """limb_ew's launch as the kernel walks it, in numpy, from ew_layout's
+    sizes and strides: rows split over the outer collapsed dims; per row
+    the constants (q, -q^-1, each operand constant along the row) read
+    once; the vector path (16-byte loads of 4 residues, EW_VECS per thread)
+    where the row is a multiple of 4 long, q is constant along it and
+    every other input is contiguous along it from a 16-byte boundary,
+    else the scalar path (q per element where it varies along the row);
+    every element of every row written once.  Returns the result and the
+    set of paths taken."""
     shape, sizes, st, rows = limb_cuda.ew_layout(ops)
+    nin = EW_INPUTS[op]
     flat = []
     for t in ops:
         if isinstance(t, torch.Tensor):
@@ -553,24 +621,48 @@ def _replay_layout(op, ops):
         else:
             flat.append(None)
     inner = sizes[-1]
-    out = np.empty(shape.numel(), I64)
-    j = np.arange(inner)
+    out = np.full(shape.numel(), -1, I64)
+    q_row = flat[3] is None or st[3][-1] == 0
+    tid = np.arange(EW_THREADS)
+    runs = np.arange(-(-inner // EW_SPAN)) * EW_SPAN
+    vec_j = (runs[:, None, None] + 4 * (np.arange(EW_VECS)[None, :, None]
+                                        * EW_THREADS + tid)).reshape(-1)
+    vec_j = (vec_j[vec_j < inner][:, None] + np.arange(4)).reshape(-1)
+    scal_j = (runs[:, None, None] + np.arange(4 * EW_VECS)[None, :, None]
+              * EW_THREADS + tid).reshape(-1)
+    scal_j = scal_j[scal_j < inner]
+    paths = set()
     for row in range(rows):
         base, r = [0] * 4, row
         for d in range(len(sizes) - 2, -1, -1):
             i, r = r % sizes[d], r // sizes[d]
             base = [b + i * s[d] for b, s in zip(base, st)]
-        vals = [np.full(inner, int(t or 0), I64) if f is None else
-                f[b + j * s[-1]] for t, f, b, s in zip(ops, flat, base, st)]
-        out[row * inner:(row + 1) * inner] = k_ew(op, *vals)
-    return out.reshape(tuple(shape))
+        along = [f is not None and s[-1] != 0 for f, s in zip(flat, st)]
+        cst = [int(t or 0) if f is None else 0 if al else int(f[b])
+               for t, f, b, al in zip(ops, flat, base, along)]
+        vec = q_row and inner % 4 == 0 and all(
+            st[k][-1] == 1 and (ops[k].data_ptr() + 4 * base[k]) % 16 == 0
+            for k in range(nin) if along[k])
+        paths.add("vector" if vec else "scalar")
+        j = vec_j if vec else scal_j
+        assert np.array_equal(np.sort(j), np.arange(inner))
+        vals = [f[b + j * s[-1]] if al else np.full(len(j), c, I64)
+                for f, b, s, al, c in zip(flat, base, st, along, cst)]
+        o = row * inner + j
+        assert (out[o] == -1).all(), "an element written twice"
+        out[o] = k_ew(op, *vals)
+    assert (out >= 0).all(), "an element not written"
+    return out.reshape(tuple(shape)), paths
 
 
 def test_elementwise_layout_replayed_on_call_site_patterns():
-    """The broadcast patterns the call sites pass: per-limb [n, 1]
-    constants, per-column [C, 1, n, 1] constants, a diagonal broadcast over
-    the polynomials, a limb slice of a larger tensor (the mod-down's u_q),
-    a Python-int modulus and operand (the rescale's last limb)."""
+    """The broadcast patterns the call sites pass, each on the vector path:
+    per-limb [n, 1] constants, per-column [C, 1, n, 1] constants, a
+    diagonal broadcast over the polynomials, a limb slice of a larger
+    tensor (the mod-down's u_q), a Python-int modulus and operand (the
+    rescale's last limb); and on the scalar path an operand one element
+    off a 16-byte boundary and a modulus that varies along the innermost
+    dim."""
     rng = np.random.default_rng(5)
     ctx = Context(head_config(15, 13), device="cpu")
     dv = ctx.dev
@@ -578,21 +670,24 @@ def test_elementwise_layout_replayed_on_call_site_patterns():
     qs = dv["q"][:5].numpy()
 
     def res(lead):
-        return T(residues(qs, lead, rng, edges=False))
-    u7 = T(residues(dv["q"][:7].numpy(), (3,), rng, edges=False))
+        return T(residues(qs, lead, rng, edges=False)).int()
+    u7 = T(residues(dv["q"][:7].numpy(), (3,), rng, edges=False)).int()
     qe = int(dv["q"][7])
     cases = [
         ("mul", res((2, 3)), q5 * 0 + 7, None, q5),
         ("add", res((4, 2)), res((4, 1))[..., :1], None, q5),
         ("mul", res((4, 2)), torch.from_numpy(
-            rng.integers(0, qs.reshape(-1, 1), (4, 1, 5, 1))), None, q5),
+            rng.integers(0, qs.reshape(-1, 1), (4, 1, 5, 1))).int(), None,
+         q5),
         ("mul", res((2, 2)), res(())[None], None, q5),
         ("sub_mul", u7[..., :5, :], res((3,)),
          dv["pdown_pinv_mont"][:5].reshape(-1, 1), q5),
-        ("add", T(rng.integers(0, qe, (3, 1, N))), qe >> 1, None, qe),
+        ("add", T(rng.integers(0, qe, (3, 1, N))).int(), qe >> 1, None, qe),
         ("from_mont", u7[:, 6:7, :], None, None, qe),
+        ("add", res((3,))[..., 1:], res((3,))[..., 1:], None, q5),
         ("neg", res((3,)).transpose(-1, -2), None, None, q5.reshape(1, -1)),
     ]
+    scalar = cases[-2:]
     for op, a, b, c, q in cases:
         want = {"add": lambda: ma.add_mod_plain(a, b, q),
                 "neg": lambda: ma.neg_mod_plain(a, q),
@@ -600,11 +695,13 @@ def test_elementwise_layout_replayed_on_call_site_patterns():
                 "from_mont": lambda: ma.from_mont_plain(
                     a, q, ma.mont_constants(q)["rinv"]),
                 "sub_mul": lambda: ma.sub_mont_mul_plain(a, b, c, q, r5)}[op]()
-        got = _replay_layout(op, (a, b, c, q))
+        got, paths = _replay_layout(op, (a, b, c, q))
         assert got.shape == tuple(want.shape), op
         assert np.array_equal(got, want.numpy()), op
+        scalar_case = any(a is s[1] for s in scalar)
+        assert paths == {"scalar" if scalar_case else "vector"}, op
     # eight dims that no two operands step through alike do not collapse
-    wide = torch.zeros((2,) * 8, dtype=torch.int64)
+    wide = torch.zeros((2,) * 8, dtype=torch.int32)
     with pytest.raises(ValueError, match="dims"):
         limb_cuda.ew_layout((wide, wide.permute(*range(7, -1, -1)), None, 3))
 

@@ -3,8 +3,8 @@ checkpoints (entry.build_model).
 
 Files: the logN-9 chain of tests/test_serial.py; both packages draw their
 keys and ciphertext from one seed in one order, so they hold the same
-residues.  Every kind round-trips in the port (switching keys as int64 and
-int32), a file written by either package loads into the other with equal
+residues.  Every kind round-trips in the port (residues as int32,
+switching keys also as int64 copies on request), a file written by either package loads into the other with equal
 arrays, and a reloaded secret key decrypts within 1e-4.
 
 Checkpoints: ``build_model`` at the tiny dims of tests/test_torch_layer.py,
@@ -103,7 +103,7 @@ def test_port_round_trips(both, tmp_path, group):
             save(p, obj)
             got = load(p, device="cpu")
             assert (got.scale, got.is_ntt) == (obj.scale, obj.is_ntt)
-            assert got.data.dtype == torch.int64
+            assert got.data.dtype == torch.int32
             assert torch.equal(got.data, obj.data)
         serial.save_layer_state(p, t["ct"], 3, ctx.cfg)
         got, idx = serial.load_layer_state(p, device="cpu")
