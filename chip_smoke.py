@@ -1,9 +1,9 @@
 """Smoke run of moai_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [bootstrap] [head] [model] [layer] [kernels]
+    python3 chip_smoke.py [bootstrap] [head] [shard] [model] [layer] [kernels]
 
-With no argument it runs bootstrap, head and model, in this order; naming
-phases runs only those (``layer`` runs only when named: the model's layer
+With no argument it runs bootstrap, head, shard and model, in this order;
+naming phases runs only those (``layer`` runs only when named: the model's layer
 0 is the same layer on the same input, and reports the same numbers;
 ``kernels``, only when named, times the limb kernels alone on the three
 chains, and with MOAI_LIMB_SOURCE naming another limb.cu builds them from
@@ -44,7 +44,35 @@ that file, so two versions compare in one call).
    the limb kernels but diag_mac); then one pass with the launch counts
    set to 0 just before (the NTT kernels, limb_ew, base_conv and ks_mac
    must have launched), decrypted and compared with the float64 oracle.
-4. model: the stacked encoder at full BERT-base width, MODEL_LAYERS of its
+4. shard: the sharded programs (moai_tpu_torch/parallel/sharding.py) on
+   virtual meshes of cuda:0 (mesh positions time-sharing the card), on the
+   bootstrap's and the head's contexts and keys (kept from those phases;
+   built here when they did not run): make_refresh over BOOT_BATCH
+   ciphertexts at flagship_config over a (2, 1) mesh (one ciphertext per
+   position) and over (1, 2) (the limbs split: 37 of the 74 per
+   position, each with its rows of the 107 Galois keys); ccmm_col_to_diag
+   at the head's width (64 columns of its input, num_row 128, logN 15)
+   over (2, 1) and, limbs split, (1, 2); the evaluator step of
+   tools/scaling_sweep.py (multiply, relinearize, rescale twice, rotate
+   by 1) on the bootstrap's output (42 limbs) over (1, 2) and (2, 2),
+   limbs split.  A mesh whose limb axis is 1 splits the columns only.
+   Each runs unsharded and then sharded on the same input, the launch
+   counts set to 0 and the peak counters reset before each: the gathered
+   output is held torch.equal to the unsharded one (gated), every kernel
+   the unsharded run launched must have launched in the sharded one
+   (gated), and a sharded bootstrap may peak on no card above
+   SHARD_BOOT_PEAK_RATIO times the unsharded run's peak (gated); the
+   seconds of both, the memory held before and the peak of both runs on
+   each card of the mesh, and the bytes moved between mesh positions
+   (sharding.moved).  With more than one card the same programs run again
+   on meshes of real cards (per-card peak); on a one-card host that run
+   is reported as not possible.  Then every kernel is held torch.equal
+   to its plain version and timed at a limb shard's window of the
+   bootstrap's chain (the (1, 2) mesh's second position after ModRaise:
+   its Q limbs [37, 74), its special limbs [6, 13), its key rows read in
+   place from row 37 of whole keys), and base_conv and ks_mac again at
+   the sharded runs' commonest launch shapes at N = 2^16.
+5. model: the stacked encoder at full BERT-base width, MODEL_LAYERS of its
    12 layers (entry.build_model: d_model 768, 12 heads of 64, d_inter 3072,
    128 tokens, 128 inputs, logN 15, L 28, DepthPlan(5, 5, 2, 0, 16),
    weights synthesized by load_reference_layer, domains from one
@@ -65,7 +93,7 @@ that file, so two versions compare in one call).
    LAYER_ATOL) and against plain_bert_layer chained (reported).  The launches of these checks are
    not counted as the path's.  Ends with the OpTrace summary of layer 0: op
    counts and the lowest n_q.
-5. layer (only when named): one encoder layer at the same width and chain
+6. layer (only when named): one encoder layer at the same width and chain
    (entry.build_layer): set-up, the same kernel check, one pass traced by
    torch.profiler, its seconds, peak memory and refresh seconds, the
    decrypted output against the float64 oracle (gated) and against
@@ -77,8 +105,10 @@ ks_mac at its commonest hoisted shape through real Galois permutations
 ("main" and "hoisted" in their rows).
 
 Prints a {"kernels": [...]} line, one row per kernel and path (diag_mac
-on the bootstrap only): each row's check and timings come from that
-path's context and its launches from that path's run; the limb kernels'
+on the bootstrap and shard only): each row's check and timings come from
+that path's context (the shard path's: the window above) and its
+launches from that path's run (the shard path's: all its sharded runs);
+the limb kernels'
 bound is the larger of the byte bound (the tensors' own element sizes:
 4-byte residues) and the integer bound (``bound_by``), the NTT's the
 byte bound; then the card's
@@ -188,14 +218,29 @@ MAIN_SHAPES = {
 }
 # The kernels each path must launch: diag_mac serves the bootstrap's linear
 # transforms only.
-PATH_KERNELS = {"bootstrap": list(KERNELS),
+PATH_KERNELS = {"bootstrap": list(KERNELS), "shard": list(KERNELS),
                 "head": [k for k in KERNELS if k != "diag_mac"],
                 "model": [k for k in KERNELS if k != "diag_mac"],
                 "layer": [k for k in KERNELS if k != "diag_mac"]}
 
 
+# The shard phase: the (col, limb) shapes of its virtual meshes on cuda:0,
+# by program; the CCMM's columns (of the head's 768-column input).
+SHARD_MESHES = {"bootstrap": [(2, 1), (1, 2)], "ccmm": [(2, 1), (1, 2)],
+                "step": [(1, 2), (2, 2)]}
+SHARD_CCMM_COLUMNS = 64
+# The most a sharded bootstrap may peak at on any card, as a multiple of
+# the unsharded run's peak on the same card just before: a limb shard reads
+# its key rows in place where the keys lie, so a mesh adds only its
+# all-gathered and per-position buffers, and never a copy of the keys
+# (29.3 GB at flagship_config).
+SHARD_BOOT_PEAK_RATIO = 1.1
+
 START = time.time()
 INT32_OPS_PER_S = [0.0]         # set in main from the card
+# what the bootstrap and head phases leave for the shard phase when it is
+# to run ("keep"): their Bootstrap and Head, the bootstrap's measurements
+SHARED = {"keep": False}
 
 
 def log(*a):
@@ -331,18 +376,29 @@ def random_residues(qs: torch.Tensor, lead: tuple, N: int) -> torch.Tensor:
     return r.remainder_(qs.reshape(-1, 1)).to(torch.int32)
 
 
-def check_kernels(ctx, path: str) -> dict:
+def check_kernels(ctx, path: str, window=None) -> dict:
     """Kernels vs plain on the card at this path's context; returns the
-    per-kernel measurements."""
+    per-kernel measurements.  With ``window`` (lo, hi, plo, phi), a limb
+    shard's: the NTT on its Q limbs [lo, hi) and its special limbs
+    [plo, phi), timed on the former, and check_limb_kernels at the
+    window."""
     from moai_tpu_torch import ntt as nt
     from moai_tpu_torch import ntt_cuda
     tb = ctx.dev["ntt"]
     cuda_tb = tb["cuda"]
-    nall, N = ctx.L + ctx.K, ctx.cfg.N
+    L, nall, N = ctx.L, ctx.L + ctx.K, ctx.cfg.N
     torch.manual_seed(0)
     x = random_residues(tb["q"], (8, 2), N)          # 8 ciphertexts, Q+P
-    cases = [((0, nall), x), ((ctx.L, nall), x[..., ctx.L:, :]),
-             ((5, 17), x[0, :, 5:17, :].contiguous())]
+    if window is None:
+        cases = [((0, nall), x), ((L, nall), x[..., L:, :]),
+                 ((5, 17), x[0, :, 5:17, :].contiguous())]
+        span = None
+    else:
+        lo, hi, plo, phi = window
+        span = (lo, hi)
+        cases = [(span, x[..., lo:hi, :]),
+                 ((L + plo, L + phi), x[..., L + plo:L + phi, :])]
+        x = x[..., lo:hi, :].contiguous()
     res = {}
     for name, kern, plain in (("ntt_fwd", ntt_cuda.ntt_cuda, nt.ntt_plain),
                               ("ntt_inv", ntt_cuda.intt_cuda,
@@ -357,9 +413,9 @@ def check_kernels(ctx, path: str) -> dict:
             if not torch.equal(got, want):
                 raise SystemExit(f"{name} differs from its plain version "
                                  f"on limbs {sl}: max |diff| {err}")
-        ms = time_ms(lambda: kern(x, cuda_tb))
-        dev = device_ms(lambda: kern(x, cuda_tb))
-        plain_ms = time_ms(lambda: plain(x, tb), reps=3)
+        ms = time_ms(lambda: kern(x, cuda_tb, span))
+        dev = device_ms(lambda: kern(x, cuda_tb, span))
+        plain_ms = time_ms(lambda: plain(x, tb, span), reps=3)
         bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
         res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound, shape=list(x.shape), device_ms=dev)
@@ -367,12 +423,12 @@ def check_kernels(ctx, path: str) -> dict:
             f"{[c[0] for c in cases]}; {tuple(x.shape)}: kernel {ms:.3f} ms, "
             f"device {json.dumps(dev)}, plain {plain_ms:.3f} ms, memory "
             f"bound {bound:.3f} ms")
-    fwd = ntt_cuda.ntt_cuda(x, cuda_tb)
-    if not torch.equal(ntt_cuda.intt_cuda(fwd, cuda_tb), x):
+    fwd = ntt_cuda.ntt_cuda(x, cuda_tb, span)
+    if not torch.equal(ntt_cuda.intt_cuda(fwd, cuda_tb, span), x):
         raise SystemExit("intt(ntt(x)) != x on the card")
     log("round trip intt(ntt(x)) == x")
     del x, fwd
-    res.update(check_limb_kernels(ctx, path))
+    res.update(check_limb_kernels(ctx, path, window))
     return res
 
 
@@ -530,27 +586,33 @@ def time_main_shapes(ctx, kern: dict, shapes: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def check_limb_kernels(ctx, path: str) -> dict:
+def check_limb_kernels(ctx, path: str, window=None) -> dict:
     """The limb kernels against their plain versions on the card, at this
     path's chain: ciphertexts [B, 2, L, N] (B = BOOT_BATCH on the
-    bootstrap, else 8, as the NTT check), the key-switch decomposition of
-    their c1 at the top level and at a level with a partial digit, the
-    mod-down, ModRaise's conversion, the MAC with and without the hoisted
-    permutation, and (bootstrap) a giant step of 8 diagonals, the most
-    lt_group 5 gives; every residue int32.  Each timed at its main case."""
+    bootstrap and shard paths, else 8, as the NTT check), the key-switch
+    decomposition of their c1 at the top level and at a level with a
+    partial digit, the mod-down, ModRaise's conversion, the MAC with and
+    without the hoisted permutation, and (bootstrap, shard) a giant step
+    of 8 diagonals, the most lt_group 5 gives; every residue int32.  Each
+    timed at its main case.  With ``window`` (lo, hi, plo, phi), a limb
+    shard's: the ciphertexts hold Q limbs [lo, hi), each conversion
+    targets those and the special limbs [plo, phi), and the MAC reads its
+    key rows in place, from row lo of whole keys (as ShardedEvaluator
+    does)."""
     from moai_tpu_torch import limb_cuda
     from moai_tpu_torch import mod_arith as ma
     dv, L, K, N = ctx.dev, ctx.L, ctx.K, ctx.cfg.N
-    boot = path == "bootstrap"
+    lo, hi, plo, phi = window or (0, L, 0, K)
+    boot = path in ("bootstrap", "shard")
     B = BOOT_BATCH if boot else 8
     torch.manual_seed(1)
     qall = dv["q"]
-    q, rinv = qall[:L].reshape(-1, 1), dv["rinv"][:L].reshape(-1, 1)
-    a, b = (random_residues(qall[:L], (B, 2), N) for _ in range(2))
-    col = random_residues(qall[:L], (B, 1), 1)
+    q, rinv = qall[lo:hi].reshape(-1, 1), dv["rinv"][lo:hi].reshape(-1, 1)
+    a, b = (random_residues(qall[lo:hi], (B, 2), N) for _ in range(2))
+    col = random_residues(qall[lo:hi], (B, 1), 1)
     u = torch.randint(0, 1 << 30, (B, 1, N), dtype=torch.int32,
                       device=a.device)
-    r2 = dv["r2"][:L].reshape(-1, 1)
+    r2 = dv["r2"][lo:hi].reshape(-1, 1)
     res = {}
     res["limb_ew"] = measure("limb_ew", [
         (lambda: ma.add_mod(a, b, q), lambda: ma.add_mod_plain(a, b, q)),
@@ -571,27 +633,35 @@ def check_limb_kernels(ctx, path: str) -> dict:
         3 * a.numel() * a.element_size(), tuple(a.shape),
         a.numel() * SLOTS_PER_EW_MUL)
 
+    # the decomposition reads all the level's limbs; a window's ciphertexts
+    # hold some of them
+    c1 = a[:, 1] if window is None else random_residues(qall[:L], (B,), N)
+
     def ks_args(n_q):
-        D = sum(1 for lo, _ in ctx.digit_ranges if lo < n_q)
-        qt = torch.cat([qall[:n_q], qall[L:]]).reshape(-1, 1)
-        rt = torch.cat([dv["rinv"][:n_q], dv["rinv"][L:]]).reshape(-1, 1)
+        D = sum(1 for d, _ in ctx.digit_ranges if d < n_q)
+        top = min(hi, n_q)
+        qt = torch.cat([qall[lo:top], qall[L + plo:L + phi]]).reshape(-1, 1)
+        rt = torch.cat([dv["rinv"][lo:top],
+                        dv["rinv"][L + plo:L + phi]]).reshape(-1, 1)
         hat = dv["ks_hat_mm"][n_q, :D]
-        hat_t = torch.cat([hat[..., :n_q], hat[..., L:]], dim=-1)
-        return D, qt, rt, (a[:, 1, :n_q].contiguous(), dv["ks_q_pad"],
+        hat_t = torch.cat([hat[..., lo:top], hat[..., L + plo:L + phi]],
+                          dim=-1)
+        return D, qt, rt, (c1[:, :n_q].contiguous(), dv["ks_q_pad"],
                            dv["ks_rinv_pad"], dv["ks_hatinv_mont"][n_q, :D],
                            hat_t, qt, rt)
     D, qt, rt, top = ks_args(L)
     _, _, _, mid = ks_args(L - ctx.alpha // 2 - 1)
     n0 = ctx.n_q0
-    lam = a[:, :, :n0].contiguous()
+    lam = a[:, :, :n0].contiguous() if window is None else \
+        random_residues(qall[:n0], (B, 2), N)
     k = torch.randint(0, n0 + 1, (B, 2, N), dtype=torch.int32,
                       device=a.device)
     modraise = (lam, None, None, None,
-                random_residues(qall[:L], (1, n0), 1)[..., 0], q, rinv, k,
-                dv["r1"][:L])
+                random_residues(qall[lo:hi], (1, n0), 1)[..., 0], q, rinv, k,
+                dv["r1"][lo:hi])
     cp = random_residues(qall[L:], (B, 2), N)
     moddown = (cp, qall[L:], dv["rinv"][L:], dv["pdown_hatinv_mont"],
-               dv["pdown_hat_modq_mm"][None, :, :L], q, rinv)
+               dv["pdown_hat_modq_mm"][None, :, lo:hi], q, rinv)
     cases = (top, mid, moddown, modraise)
     res["base_conv"] = measure("base_conv", [
         (lambda c=c: ma.base_conv(*c), lambda c=c: ma.base_conv_plain(*c))
@@ -602,28 +672,30 @@ def check_limb_kernels(ctx, path: str) -> dict:
     del mid, modraise, moddown, cp, lam, cases
 
     y = random_residues(qt.reshape(-1), (B, D), N)
-    keys = [random_residues(qall, (ctx.dnum, 2), N) for _ in range(3)]
+    keys = [random_residues(qall, (ctx.dnum, 2), N)[..., lo:L + phi, :]
+            for _ in range(3)]
+    ql = L + plo - lo                   # the window's row of special limb plo
     perm = galois_perms(N, (1, 2, 3), a.device)
     key = keys[0]
     res["ks_mac"] = measure(
-        "ks_mac", [(lambda: ma.ks_mac(y, key, L, qt, rt),
-                    lambda: ma.ks_mac_plain(y, key, L, qt, rt)),
-                   (lambda: ma.ks_mac(y, keys, L, qt, rt, perm),
-                    lambda: ma.ks_mac_plain(y, keys, L, qt, rt, perm))],
-        lambda: ma.ks_mac(y, key, L, qt, rt),
-        lambda: ma.ks_mac_plain(y, key, L, qt, rt),
-        *mac_cost(limb_cuda.mac_shape(y, [key], L, None), y.element_size()))
+        "ks_mac", [(lambda: ma.ks_mac(y, key, ql, qt, rt),
+                    lambda: ma.ks_mac_plain(y, key, ql, qt, rt)),
+                   (lambda: ma.ks_mac(y, keys, ql, qt, rt, perm),
+                    lambda: ma.ks_mac_plain(y, keys, ql, qt, rt, perm))],
+        lambda: ma.ks_mac(y, key, ql, qt, rt),
+        lambda: ma.ks_mac_plain(y, key, ql, qt, rt),
+        *mac_cost(limb_cuda.mac_shape(y, [key], ql, None), y.element_size()))
     del y, keys, key
     if boot:
-        cts = [random_residues(qall[:L], (B, 2), N) for _ in range(8)]
-        pts = random_residues(qall[:L], (8,), N)
+        cts = [random_residues(qall[lo:hi], (B, 2), N) for _ in range(8)]
+        pts = random_residues(qall[lo:hi], (8,), N)
         res["diag_mac"] = measure(
             "diag_mac", [(lambda: ma.diag_mac(cts, pts, q, rinv),
                           lambda: ma.diag_mac_plain(cts, pts, q, rinv))],
             lambda: ma.diag_mac(cts, pts, q, rinv),
             lambda: ma.diag_mac_plain(cts, pts, q, rinv),
             pts.element_size() * (9 * cts[0].numel() + pts.numel()),
-            (8, B, 2, L, N), cts[0].numel() * (
+            (8, B, 2, hi - lo, N), cts[0].numel() * (
                 8 * SLOTS_PER_PRODUCT + 2 * SLOTS_PER_GROUP_REDC))
     return res
 
@@ -772,6 +844,8 @@ def run_bootstrap() -> dict:
         f"per ciphertext real {np.abs(got.real - want).max(-1).tolist()}")
     if max(err_re, err_im) > BOOT_ATOL:
         raise SystemExit("bootstrap output outside tolerance")
+    if SHARED["keep"]:
+        SHARED["bootstrap"] = boot
     return kern
 
 
@@ -793,6 +867,7 @@ def run_head() -> dict:
     Returns the kernels' measurements with the pass's launches."""
     from moai_tpu_torch.entry import build_head
     t0 = time.time()
+    held = torch.cuda.memory_allocated()        # earlier phases' objects
     head = build_head(**HEAD, device="cuda",
                       weights=bert_weights(np.random.default_rng(0),
                                            HEAD["d_model"], HEAD["head_dim"]))
@@ -814,8 +889,10 @@ def run_head() -> dict:
     shapes = launch_shapes()
     peak = torch.cuda.max_memory_allocated()
     log(f"head: {secs:.2f} s, {secs / HEAD['input_count']:.4f} s per input, "
-        f"peak {peak / 2**30:.2f} GiB, output n_q={out.n_q}, "
-        f"launches {launches}")
+        f"peak {peak / 2**30:.2f} GiB, its own {(peak - held) / 2**30:.2f} "
+        f"GiB above the {held / 2**30:.2f} GiB held when the phase began "
+        f"(the bootstrap's, kept for the shard phase), output "
+        f"n_q={out.n_q}, launches {launches}")
     require_launches("head", launches, kern)
     require_int32("the head's output", out.data)
     time_main_shapes(head.ctx, kern, shapes)
@@ -830,6 +907,213 @@ def run_head() -> dict:
         f"{HEAD_ATOL}), max |out| {np.abs(want).max():.3f}")
     if err > HEAD_ATOL:
         raise SystemExit("head output outside tolerance")
+    if SHARED["keep"]:
+        SHARED["head"] = head
+    return kern
+
+
+def sync_all(mesh) -> None:
+    for d in mesh.distinct():
+        torch.cuda.synchronize(d)
+
+
+def sharded_vs_unsharded(name: str, mesh, unsharded, sharded, shapes: dict,
+                         peak_ratio: float | None = None) -> dict:
+    """One program unsharded on the card and then sharded over ``mesh``, the
+    launch counts set to 0 and the peak memory counters reset before each:
+    the gathered output torch.equal to the unsharded one and every kernel
+    the unsharded run launched launched again (both gated); with
+    ``peak_ratio``, no card's peak in the sharded run above ``peak_ratio``
+    times the unsharded run's (gated).  Adds the sharded run's launch
+    shapes (limb_cuda.shapes) to ``shapes``.  Returns the seconds,
+    launches, the memory held before each run and each card's peak, and
+    the bytes moved between mesh positions."""
+    from moai_tpu_torch.parallel import sharding
+    gib = 2**30
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / gib
+    t0 = time.perf_counter()
+    want = unsharded()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_peak = torch.cuda.max_memory_allocated() / gib
+    plain_launches = launch_counts()
+    sync_all(mesh)
+    for d in mesh.distinct():
+        torch.cuda.reset_peak_memory_stats(d)
+    held_sharded = {str(d): torch.cuda.memory_allocated(d) / gib
+                    for d in mesh.distinct()}
+    reset_launches()
+    sharding.reset_moved()
+    t0 = time.perf_counter()
+    got = sharded()
+    sync_all(mesh)
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    for kind, counts in launch_shapes().items():
+        for shape, n in counts.items():
+            shapes[kind][shape] = shapes[kind].get(shape, 0) + n
+    peak = {str(d): torch.cuda.max_memory_allocated(d) / gib
+            for d in mesh.distinct()}
+    rec = {"program": name, "mesh": [mesh.shape["col"], mesh.shape["limb"]],
+           "devices": sorted({str(d) for d in mesh.distinct()}),
+           "unsharded_s": plain_s, "sharded_s": secs,
+           "unsharded_held_gib": held, "unsharded_peak_gib": plain_peak,
+           "held_gib": held_sharded, "peak_gib": peak,
+           "peak_ratio_limit": peak_ratio,
+           "moved_bytes": dict(sharding.moved),
+           "unsharded_launches": plain_launches, "launches": launches,
+           "equal": bool(got.scale == want.scale
+                         and got.data.shape == want.data.shape
+                         and torch.equal(got.data, want.data))}
+    require_int32(f"the sharded {name}'s output", got.data)
+    log(f"shard {name} on mesh {mesh}: {json.dumps(rec)}")
+    del got, want
+    if not rec["equal"]:
+        raise SystemExit(f"the sharded {name} differs from the unsharded one")
+    missing = [k for k, v in plain_launches.items()
+               if v > 0 and launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"the sharded {name} launched no {missing}")
+    if peak_ratio is not None and max(peak.values()) > peak_ratio * plain_peak:
+        raise SystemExit(f"the sharded {name} peaked at {peak} GiB, above "
+                         f"{peak_ratio} x the unsharded run's "
+                         f"{plain_peak:.2f} GiB")
+    return rec
+
+
+def shard_programs(boot, head, devices, meshes, shapes: dict) -> list:
+    """The shard phase's programs over meshes of ``devices`` (``meshes``:
+    the (col, limb) shapes by program, as SHARD_MESHES; each mesh takes
+    the first of ``devices`` in order): records of sharded_vs_unsharded,
+    the launch shapes of the sharded runs added to ``shapes``; the
+    bootstrap's peak held to SHARD_BOOT_PEAK_RATIO."""
+    from moai_tpu_torch.boot.bootstrap import make_refresh
+    from moai_tpu_torch.ciphertext import Ciphertext
+    from moai_tpu_torch.entry import evaluator_step
+    from moai_tpu_torch.ops.matmul import ccmm_col_to_diag, col_chunk_for
+    from moai_tpu_torch.parallel import sharding as sh
+    home = devices[0]
+    bctx = boot.ctx
+    x = Ciphertext(boot.x_data, bctx.scale, True)
+    plain_refresh = make_refresh(boot.bootstrapper)
+    recs, boot_out = [], [None]
+
+    def mesh_of(c, l):
+        return sh.make_mesh(c * l, limb_axis=l, devices=devices[:c * l])
+
+    for c, l in meshes["bootstrap"]:
+        refresh = make_refresh(boot.bootstrapper, mesh=mesh_of(c, l))
+
+        def unsharded():
+            boot_out[0] = plain_refresh(x, boot.n_out)
+            return boot_out[0]
+        recs.append(sharded_vs_unsharded(
+            "bootstrap (make_refresh)", mesh_of(c, l), unsharded,
+            lambda: refresh(x, boot.n_out), shapes, SHARD_BOOT_PEAK_RATIO))
+        del refresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    hctx = head.ctx
+    n = SHARD_CCMM_COLUMNS
+    hx = Ciphertext(head.x_data[:n], hctx.scale, True)
+    hw = Ciphertext(head.x_data[n:2 * n], hctx.scale, True)
+    chunk = col_chunk_for(hctx, hctx.L, head.num_row)
+    for c, l in meshes["ccmm"]:
+        mesh = mesh_of(c, l)
+        sev = sh.ShardedEvaluator(head.ev, mesh)
+        recs.append(sharded_vs_unsharded(
+            f"ccmm_col_to_diag ({n} columns, num_row {head.num_row}, "
+            f"col_chunk {chunk})", mesh,
+            lambda: ccmm_col_to_diag(head.ev, hx, hw, head.num_x,
+                                     head.num_row, col_chunk=chunk),
+            lambda: sh.gather(sh.ccmm_col_to_diag_sharded(
+                sev, sh.shard_ciphertext(hx, mesh, limb=l > 1),
+                sh.shard_ciphertext(hw, mesh, limb=l > 1), head.num_x,
+                head.num_row, chunk), home), shapes))
+        del sev
+        gc.collect()
+        torch.cuda.empty_cache()
+    a = boot_out[0]
+    b = a.with_data(a.data.flip(0).contiguous())
+    ev = boot.bootstrapper.ev
+    for c, l in meshes["step"]:
+        mesh = mesh_of(c, l)
+        sev = sh.ShardedEvaluator(ev, mesh)
+        recs.append(sharded_vs_unsharded(
+            f"evaluator step ({a.batch_shape[0]} ciphertexts at {a.n_q} "
+            f"limbs, limbs split)", mesh,
+            lambda: evaluator_step(ev, a, b),
+            lambda: sh.gather(evaluator_step(
+                sev, sh.shard_ciphertext(a, mesh, limb=True),
+                sh.shard_ciphertext(b, mesh, limb=True)), home), shapes))
+        del sev
+        gc.collect()
+        torch.cuda.empty_cache()
+    return recs
+
+
+def run_shard() -> dict:
+    """The shard phase: the sharded programs on virtual meshes of cuda:0
+    (and on real cards where there are several), each held torch.equal to
+    its unsharded run; then every kernel held against its plain version
+    at a limb shard's window of the bootstrap's chain (the second position
+    of the (1, 2) mesh after ModRaise: Q limbs [L/2, L), special limbs
+    [K/2, K), the key rows read in place), and base_conv and ks_mac at the
+    sharded runs' commonest launch shapes at that chain.  Returns the kernels'
+    measurements with the launches of the sharded runs."""
+    from moai_tpu_torch.entry import build_bootstrap, build_head
+    from moai_tpu_torch.params import flagship_config
+    t0 = time.time()
+    boot = SHARED.pop("bootstrap", None)
+    if boot is None:
+        boot = build_bootstrap(flagship_config(), BOOT_BATCH, device="cuda")
+    head = SHARED.pop("head", None)
+    if head is None:
+        head = build_head(**HEAD, device="cuda",
+                          weights=bert_weights(np.random.default_rng(0),
+                                               HEAD["d_model"],
+                                               HEAD["head_dim"]))
+    torch.cuda.synchronize()
+    log(f"shard set-up {time.time() - t0:.1f} s (the bootstrap's and the "
+        f"head's contexts and keys; built here only when their phases did "
+        f"not run); {torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    card0 = torch.device("cuda", 0)
+    shapes = {"base_conv": {}, "ks_mac": {}}
+    recs = shard_programs(boot, head, [card0] * 4, SHARD_MESHES, shapes)
+    n = torch.cuda.device_count()
+    if n > 1:
+        real = [torch.device("cuda", i) for i in range(n)]
+        meshes = {k: [m for m in v if m[0] * m[1] <= n]
+                  for k, v in SHARD_MESHES.items()}
+        log(f"shard on real cards: {n} cards, meshes {meshes}")
+        recs += shard_programs(boot, head, real, meshes, shapes)
+    else:
+        log(f"shard on real cards: not possible, this host has {n} card "
+            f"(a mesh of real cards needs two or more)")
+    total = dict.fromkeys(KERNELS, 0)
+    for r in recs:
+        for k in KERNELS:
+            total[k] += r["launches"][k]
+    log(f"shard: {len(recs)} sharded runs, each equal to its unsharded "
+        f"run; launches in the sharded runs {total}")
+    ctx = boot.ctx
+    del boot, head
+    gc.collect()
+    torch.cuda.empty_cache()
+    window = (ctx.L // 2, ctx.L, ctx.K // 2, ctx.K)
+    log(f"shard kernels at the window Q {window[:2]}, special "
+        f"{window[2:]} of the bootstrap's chain")
+    kern = check_kernels(ctx, "shard", window)
+    require_launches("shard", total, kern)
+    # the launches at the bootstrap's N (the bootstrap and the step; the
+    # CCMM runs on the head's chain)
+    N = ctx.cfg.N
+    time_main_shapes(ctx, kern, {k: {sh: c for sh, c in v.items()
+                                     if sh[5 if k == "base_conv" else 4] == N}
+                                 for k, v in shapes.items()})
     return kern
 
 
@@ -1110,13 +1394,15 @@ def main() -> int:
         f"({INT32_LANES_PER_SM} lanes per SM, the maximum SM clock)")
 
     phases = {"bootstrap": run_bootstrap, "head": run_head,
-              "model": run_model, "layer": run_layer, "kernels": run_kernels}
-    chosen = sys.argv[1:] or ["bootstrap", "head", "model"]
+              "shard": run_shard, "model": run_model, "layer": run_layer,
+              "kernels": run_kernels}
+    chosen = sys.argv[1:] or ["bootstrap", "head", "shard", "model"]
     unknown = set(chosen) - set(phases)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",
               file=sys.stderr)
         return 2
+    SHARED["keep"] = "shard" in chosen
     paths = {}
     for name in chosen:
         kern = phases[name]()

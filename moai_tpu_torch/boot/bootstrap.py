@@ -24,6 +24,7 @@ passing plaintexts into a jitted body (``collect_lt``, ``_pt_source``,
 
 from __future__ import annotations
 
+import copy
 import time
 import warnings
 from typing import Callable
@@ -113,6 +114,24 @@ class Bootstrapper:
             if n_s2c - 2 * i >= ctx.n_q0 + 2:
                 self._encoded("s2c", i, n_s2c - 2 * i)
 
+    def to(self, device, ev: Evaluator | None = None) -> "Bootstrapper":
+        """This Bootstrapper's replica on ``device``: its evaluator
+        (``Evaluator.to``, or ``ev``, an evaluator already there), its
+        encoded diagonals and ModRaise tables moved there, nothing
+        recomputed; itself when it is there."""
+        ev = self.ev.to(device) if ev is None else ev
+        if ev is self.ev:
+            return self
+        dev = ev.device
+        out = copy.copy(self)
+        out.ev, out.encoder, out.ctx = ev, self.encoder.to(dev), ev.ctx
+        out._pts = {k: {d: t.to(dev) for d, t in pts.items()}
+                    for k, pts in self._pts.items()}
+        for name in ("_mr_hatinv", "_mr_hat_mm", "_mr_q0_mm", "_mr_qinv_f"):
+            setattr(out, name, getattr(self, name).to(dev))
+        out._imono = None if self._imono is None else self._imono.to(dev)
+        return out
+
     # -- key planning ------------------------------------------------------
     def galois_steps(self) -> list[int]:
         n = self.encoder.slots
@@ -185,22 +204,35 @@ class Bootstrapper:
     def modraise(self, ct: Ciphertext) -> Ciphertext:
         """ct at the bottom n_q0 primes -> full chain; message becomes
         m*Delta + q0*I."""
-        ev, ctx = self.ev, self.ctx
-        n0, L = ctx.n_q0, ctx.L
+        n0, L = self.ctx.n_q0, self.ctx.L
         if ct.n_q != n0:
             raise ValueError(f"modraise: input at {ct.n_q} limbs, not {n0}")
-        q0v, rinv0 = ev._q(n0), ev._rinv(n0)
-        c = intt(ct.data, ev.tbd, limb_slice=(0, n0))
-        lam = ma.from_mont(ma.mont_mul(c, self._mr_hatinv, q0v, rinv0),
-                           q0v, rinv0)                     # true, [..,P,n0,N]
+        lam = self._modraise_lift(ct.data, 0, n0)
+        return Ciphertext(self._modraise_convert(lam, 0, L), ct.scale, True)
+
+    def _modraise_lift(self, x, lo: int, hi: int):
+        """ModRaise's first half on input limbs [lo, hi) of the n_q0 (NTT
+        form): lam_i = [c_i * (q0/q_i)^-1] mod q_i, true residues."""
+        dv, tbd = self.ev.dev, self.ev.tbd
+        q = dv["q"][lo:hi].reshape(-1, 1)
+        rinv = dv["rinv"][lo:hi].reshape(-1, 1)
+        c = intt(x, tbd, limb_slice=(lo, hi))
+        return ma.from_mont(ma.mont_mul(c, self._mr_hatinv[lo:hi], q, rinv),
+                            q, rinv)                       # [.., P, n, N]
+
+    def _modraise_convert(self, lam, lo: int, hi: int):
+        """ModRaise's second half: all n_q0 lam [..., n_q0, N] converted to
+        output limbs [lo, hi) of the full chain, less k * q0 with k from the
+        float32 CRT estimate, back to the NTT domain."""
+        dv = self.ev.dev
         f = torch.sum(lam.to(torch.float32) * self._mr_qinv_f, dim=-2)
         k = torch.round(f).to(torch.int32)                 # [..., P, N]
-        # base conversion of lam to all L limbs, less k * q0
-        qL, rinvL = ev._q(L), ev._rinv(L)
-        acc = ma.base_conv(lam, None, None, None, self._mr_hat_mm[None], qL,
-                           rinvL, k=k, kq=self._mr_q0_mm)[..., 0, :, :]
-        out = ntt(acc, ev.tbd, limb_slice=(0, L))
-        return Ciphertext(out, ct.scale, True)
+        acc = ma.base_conv(lam, None, None, None,
+                           self._mr_hat_mm[None, :, lo:hi],
+                           dv["q"][lo:hi].reshape(-1, 1),
+                           dv["rinv"][lo:hi].reshape(-1, 1), k=k,
+                           kq=self._mr_q0_mm[lo:hi])[..., 0, :, :]
+        return ntt(acc, self.ev.tbd, limb_slice=(lo, hi))
 
     # -- multiply by i (free monomial X^n) ---------------------------------
     def _i_mono(self, n_q: int) -> torch.Tensor:
@@ -225,14 +257,21 @@ class Bootstrapper:
         if self.on_stage is not None:
             self.on_stage(name)
 
+    def _linear(self, kind: str, i: int, ct: Ciphertext,
+                alpha: float | None = None) -> Ciphertext:
+        """Level i of CoeffToSlot ("c2s") or SlotToCoeff ("s2c") applied
+        to ct, with its diagonals encoded at ct's level (times alpha)."""
+        lev = (self.c2s_levels if kind == "c2s" else self.s2c_levels)[i]
+        return apply_diagonals(self.ev, self.encoder, ct, lev,
+                               encoded=self._encoded(kind, i, ct.n_q, alpha))
+
     def __call__(self, ct: Ciphertext) -> Ciphertext:
-        ev, enc, ctx = self.ev, self.encoder, self.ctx
+        ev, ctx = self.ev, self.ctx
         delta_in = ct.scale
         z = self.modraise(ct)
         self._stage("ModRaise")
-        for i, lev in enumerate(self.c2s_levels):
-            z = apply_diagonals(ev, enc, z, lev,
-                                encoded=self._encoded("c2s", i, z.n_q))
+        for i in range(len(self.c2s_levels)):
+            z = self._linear("c2s", i, z)
             self._stage(f"CoeffToSlot {i}")
         # reinterpret: slots now hold t = m*Delta_in/q0 + I at scale q0
         # (coefficients arrive bit-reversed in the factored path; EvalMod
@@ -242,9 +281,8 @@ class Bootstrapper:
                           reason="ModRaise: slots hold m*Delta/q0 + I")
         del z
         tc = ev.conjugate(t)
-        q = ev._q(t.n_q)
-        t_r = t.with_data(ma.add_mod(t.data, tc.data, q))     # 2*Re(t)
-        t_i = self.mul_i(t.with_data(ma.sub_mod(tc.data, t.data, q)))  # 2*Im
+        t_r = ev.add(t, tc)                                    # 2*Re(t)
+        t_i = self.mul_i(ev.sub(tc, t))                        # 2*Im(t)
         del t, tc
         y_r = self.mr(ev, t_r, pre_scale=0.5)
         del t_r
@@ -259,10 +297,8 @@ class Bootstrapper:
         alpha = ctx.scale * self.q0 / (2 * np.pi * delta_in * w.scale)
         out = w
         last = len(self.s2c_levels) - 1
-        for i, lev in enumerate(self.s2c_levels):
-            pts = self._encoded("s2c", i, out.n_q,
-                                alpha if i == last else None)
-            out = apply_diagonals(ev, enc, out, lev, encoded=pts)
+        for i in range(len(self.s2c_levels)):
+            out = self._linear("s2c", i, out, alpha if i == last else None)
             self._stage(f"SlotToCoeff {i}")
         out = ev.with_scale(out, ctx.scale,
                             reason="SlotToCoeff folded alpha into last LT")
@@ -271,7 +307,7 @@ class Bootstrapper:
         return out
 
 
-def make_refresh(bt: Bootstrapper, m_bound: float = 1.0):
+def make_refresh(bt: Bootstrapper, m_bound: float = 1.0, mesh=None):
     """Adapt a Bootstrapper to the model layers' ``refresh(ct, n_q)``
     callback (models/bert.py).  ``m_bound``: values are reinterpreted to
     |m| <= 1 by declaring scale*m_bound before the bootstrap and undoing
@@ -279,7 +315,15 @@ def make_refresh(bt: Bootstrapper, m_bound: float = 1.0):
     |v|/q0 = |m|*Delta/q0, so callers must keep |m|*Delta within the
     ModReducer's eps (fold real normalization into adjacent plaintext
     constants: LayerNorm gamma before a bootstrap, the next matmul's
-    weights after)."""
+    weights after).  With ``mesh`` (``parallel.sharding.Mesh``) the batch
+    is split over its ``col`` axis, and its limbs over the ``limb`` axis
+    when that axis is longer than 1; each shard is refreshed on its device
+    (by a replica of ``bt``, or limb-sharded with the collectives) and the
+    result gathered back onto the input's device
+    (``ShardedBootstrapper.make_refresh``)."""
+    if mesh is not None:
+        from ..parallel.sharding import ShardedBootstrapper
+        return ShardedBootstrapper(bt, mesh).make_refresh(m_bound)
     ev = bt.ev
 
     def refresh(ct, n_q):

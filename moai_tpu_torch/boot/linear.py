@@ -88,13 +88,15 @@ def encode_diagonals(ctx, encoder: Encoder, diags: dict, scale: float,
     return out
 
 
-def diagonal_plaintexts(ctx, stored: list, n_q: int) -> torch.Tensor:
-    """Encoded diagonals (``encode_diagonals``) at level n_q: residues,
-    Montgomery form and one batched forward NTT -> [len(stored), n_q, N]."""
-    q = ctx.dev["q"][:n_q].reshape(-1, 1)
+def diagonal_plaintexts(ctx, stored: list, n_q: int, lo: int = 0
+                        ) -> torch.Tensor:
+    """Encoded diagonals (``encode_diagonals``) at level n_q, limbs [lo,
+    n_q): residues, Montgomery form and one batched forward NTT ->
+    [len(stored), n_q - lo, N]."""
+    q = ctx.dev["q"][lo:n_q].reshape(-1, 1)
     res = torch.stack([s.remainder(q).to(torch.int32) if s.dim() == 1
-                       else s[:n_q] for s in stored])
-    return residues_to_ntt(ctx, res, 0, n_q)
+                       else s[lo:n_q] for s in stored])
+    return residues_to_ntt(ctx, res, lo, n_q)
 
 
 def apply_diagonals(ev: Evaluator, encoder: Encoder, ct: Ciphertext,

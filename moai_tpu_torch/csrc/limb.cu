@@ -104,7 +104,7 @@ struct BaseConvArgs {
 struct KsMacArgs {
   const int* y;                   // [B, D, T, N]
   const i64* perm;                // [R, N] or null (R == 1)
-  const int* key[kMaxRot];        // each [>= D, 2, KL, N]
+  const int* key[kMaxRot];        // each [>= D, 2, rows, N], KL rows apart
   const int* tq;                  // tq[t * tqs]
   i64 tqs;
   int* out;                       // [2, R, B, T, N]

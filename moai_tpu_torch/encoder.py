@@ -16,6 +16,8 @@ Galois rotations are plain gathers.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 
 from .params import Context
@@ -39,6 +41,16 @@ class Encoder:
         k = np.arange(N)
         self.zeta_pow = np.exp(1j * np.pi * k / N)             # zeta^k
         self.zeta_pow_inv = np.exp(-1j * np.pi * k / N)
+
+    def to(self, device) -> "Encoder":
+        """The encoder of this context's replica on ``device`` (host tables
+        shared); itself when the context is there."""
+        ctx = self.ctx.to(device)
+        if ctx is self.ctx:
+            return self
+        out = copy.copy(self)
+        out.ctx = ctx
+        return out
 
     # -- embedding --------------------------------------------------------
     def embed_to_slots(self, coeffs: np.ndarray) -> np.ndarray:

@@ -14,7 +14,12 @@ bootstrap, end to end.
   (``serial.save_layer_state``) and resume (``start_layer``).
 - ``build_bootstrap``: the CKKS bootstrap (``boot.bootstrap``) through
   ``make_refresh``, as the layers call it, over a batch of ciphertexts
-  whose slot values are the oracle.
+  whose slot values are the oracle; with ``mesh``, the batch split over
+  the mesh's ``col`` axis (``parallel.sharding``).
+- ``build_sharded_step`` and ``build_sharded_ccmm``: the JAX package's
+  sharded programs (``tools/scaling_sweep.py``'s evaluator step,
+  ``tools/multichip_dryrun.py``'s CCMM) on a mesh, beside the same
+  program unsharded.
 
 ``head_oracle`` and ``layer_oracle`` (chained by ``Model.oracle``) compute
 the same functions, with the circuits' own polynomial approximations, in
@@ -47,6 +52,8 @@ from .ops.nonlinear import (softmax_diag, diag_valid_masks, fit_gelu_cheb,
                             fit_rsqrt_line)
 from .ops.packing import batch_input, bias_vec, unpack_batch
 from .params import CKKSConfig, Context, head_config, resolve_device
+from .parallel.sharding import (Mesh, ShardedCiphertext, ShardedEvaluator,
+                                ccmm_col_to_diag_sharded, shard_ciphertext)
 from . import serial
 from .utils.recrypt import Recryptor
 
@@ -67,6 +74,7 @@ class Head:
     num_row: int
     exp_r: int
     inv_iters: int
+    ev: Evaluator              # its keys: relinearization, both CCMMs' steps
 
     def decode(self, out: Ciphertext) -> np.ndarray:
         """Decrypt the head output -> [input_count, num_row, head_dim]."""
@@ -177,7 +185,7 @@ def build_head(logN: int, n_data_levels: int, num_x: int, num_row: int,
     x0 = batch_input(encryptor, xs, num_x, num_row, scale=x_scale, n_q=n_att)
     return Head(head_fn, x0.data, ctx,
                 Decryptor(ctx, enc, kg.sk, device=dev), xs, dict(weights),
-                np.asarray(lens), num_x, num_row, exp_r, inv_iters)
+                np.asarray(lens), num_x, num_row, exp_r, inv_iters, ev)
 
 
 def head_oracle(xs: np.ndarray, weights: dict, lens, exp_r: int,
@@ -525,7 +533,7 @@ class Bootstrap:
 def build_bootstrap(cfg: CKKSConfig, batch: int, seed: int = 11,
                     m_bound: float = 1.0, lt_group: int | None = None,
                     evalmod_degree: int = EVALMOD_DEGREE,
-                    value_bound: float = 0.8,
+                    value_bound: float = 0.8, mesh: Mesh | None = None,
                     device="cuda") -> Bootstrap:
     """Context, keys, Bootstrapper and the encrypted input of a bootstrap
     pass over ``batch`` ciphertexts.
@@ -539,7 +547,9 @@ def build_bootstrap(cfg: CKKSConfig, batch: int, seed: int = 11,
     spare level above q0, as the layers keep at a refresh.  ``fn``
     refreshes the batch through ``make_refresh(bt, m_bound)`` up to
     ``n_out`` = L - 2 * bt.levels limbs, the data chain above the
-    bootstrap's own levels."""
+    bootstrap's own levels.  With ``mesh`` (limb axis 1) the refresh
+    splits the batch over the mesh's ``col`` axis and gathers the result
+    back onto ``device``."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     ctx = Context(cfg, device=dev)
@@ -561,7 +571,7 @@ def build_bootstrap(cfg: CKKSConfig, batch: int, seed: int = 11,
     if n_out < ctx.n_q0 + 2:
         raise ValueError(f"chain too short: {ctx.L} primes, the bootstrap "
                          f"spends {2 * bt.levels}")
-    refresh = make_refresh(bt, m_bound=m_bound)
+    refresh = make_refresh(bt, m_bound=m_bound, mesh=mesh)
     values = np.random.default_rng(seed).uniform(
         -value_bound, value_bound, (batch, cfg.slots))
     x = encryptor.encrypt_values(values, n_q=ctx.n_q0 + 2)
@@ -575,3 +585,109 @@ def build_bootstrap(cfg: CKKSConfig, batch: int, seed: int = 11,
 
     return Bootstrap(boot_fn, x.data, ctx, decryptor, bt, values, n_out,
                      setup_s)
+
+
+def evaluator_step(ev, a, b):
+    """``tools/scaling_sweep.py``'s step: multiply, relinearize, rescale the
+    pair, rotate by one slot.  ``ev`` is an ``Evaluator`` (a and b
+    Ciphertexts) or a ``ShardedEvaluator`` (ShardedCiphertexts)."""
+    return ev.rotate(ev.rescale_pair(ev.relinearize(ev.multiply(a, b))), 1)
+
+
+def _shard_for(mesh: Mesh, mode: str):
+    """ct -> ShardedCiphertext: its batch over the mesh's ``col`` axis and,
+    in mode "limb", its limbs over the ``limb`` axis (mode "col": the
+    spec ``P("col", None, None, None)`` of tools/scaling_sweep.py; "limb"
+    on a mesh of one row: ``P(None, None, "limb", None)``)."""
+    if mode not in ("col", "limb"):
+        raise ValueError(f"mode {mode!r} is neither 'col' nor 'limb'")
+    return lambda ct: shard_ciphertext(ct, mesh, limb=mode == "limb")
+
+
+@dataclasses.dataclass
+class ShardedStep:
+    fn: Callable[[ShardedCiphertext, ShardedCiphertext], ShardedCiphertext]
+    plain: Callable[[Ciphertext, Ciphertext], Ciphertext]   # unsharded
+    shard: Callable[[Ciphertext], ShardedCiphertext]
+    a: Ciphertext              # the inputs, unsharded, on the device
+    b: Ciphertext
+    ctx: Context
+    sev: ShardedEvaluator
+    mesh: Mesh
+    mode: str
+
+
+def build_sharded_step(cfg: CKKSConfig, batch: int, mesh: Mesh, mode: str,
+                       seed: int = 3, device="cuda") -> ShardedStep:
+    """``tools/scaling_sweep.py``'s program on ``mesh``: keys drawn from
+    ``seed`` in its order (the Galois key of rotation 1, the public key,
+    the relinearization key), ``batch`` ciphertexts of U(-1, 1) slots from
+    ``default_rng(0)`` and the same values reversed, at the full chain.
+    ``fn`` runs ``evaluator_step`` on the sharded inputs, ``plain`` the
+    same step unsharded on ``device``; ``mode`` is "col" or "limb"
+    (``_shard_for``)."""
+    dev = resolve_device(device)
+    shard = _shard_for(mesh, mode)
+    ctx = Context(cfg, device=dev)
+    enc = Encoder(ctx)
+    kg = KeyGenerator(ctx, seed=seed, device=dev)
+    gks = kg.gen_galois_keys(steps=[1])
+    encryptor = Encryptor(ctx, enc, kg.gen_public_key(), kg, device=dev)
+    ev = Evaluator(ctx, relin_key=kg.gen_relin_key(), galois_keys=gks,
+                   device=dev)
+    vals = np.random.default_rng(0).uniform(-1, 1, (batch, cfg.slots))
+    a = encryptor.encrypt(encryptor.encode(vals))
+    b = encryptor.encrypt(encryptor.encode(vals[::-1]))
+    sev = ShardedEvaluator(ev, mesh)
+    return ShardedStep(lambda x, y: evaluator_step(sev, x, y),
+                       lambda x, y: evaluator_step(ev, x, y), shard, a, b,
+                       ctx, sev, mesh, mode)
+
+
+@dataclasses.dataclass
+class ShardedCCMM:
+    fn: Callable[[ShardedCiphertext, ShardedCiphertext], ShardedCiphertext]
+    plain: Callable[[Ciphertext, Ciphertext], Ciphertext]   # unsharded
+    shard: Callable[[Ciphertext], ShardedCiphertext]
+    x: Ciphertext              # the col-packed inputs [columns, 2, L, N]
+    w: Ciphertext
+    ctx: Context
+    decryptor: Decryptor
+    values: tuple              # the slot values of x and w
+    num_x: int
+    num_row: int
+
+
+def build_sharded_ccmm(cfg: CKKSConfig, num_x: int, num_row: int,
+                       columns: int, mesh: Mesh, mode: str = "col",
+                       seed: int = 7, col_chunk: int | None = None,
+                       device="cuda") -> ShardedCCMM:
+    """``tools/multichip_dryrun.py``'s CCMM (``ccmm_col_to_diag``) on
+    ``mesh`` (``ccmm_col_to_diag_sharded``; ``mode`` as in
+    ``build_sharded_step``): keys from ``seed`` in its order (the Galois
+    keys of ``ccmm_col_steps``, the public key, the relinearization key), X
+    and W of ``columns`` ciphertexts of N(0, 0.5) slots from
+    ``default_rng(5)`` at the full chain.  ``plain`` is the unsharded CCMM
+    on ``device``."""
+    dev = resolve_device(device)
+    shard = _shard_for(mesh, mode)
+    ctx = Context(cfg, device=dev)
+    enc = Encoder(ctx)
+    kg = KeyGenerator(ctx, seed=seed, device=dev)
+    gks = kg.gen_galois_keys(steps=ccmm_col_steps(num_x, num_row))
+    encryptor = Encryptor(ctx, enc, kg.gen_public_key(), kg, device=dev)
+    decryptor = Decryptor(ctx, enc, kg.sk, device=dev)
+    ev = Evaluator(ctx, relin_key=kg.gen_relin_key(), galois_keys=gks,
+                   device=dev)
+    rng = np.random.default_rng(5)
+    va = rng.normal(0, 0.5, (columns, cfg.slots))
+    vb = rng.normal(0, 0.5, (columns, cfg.slots))
+    x = encryptor.encrypt_values(va, n_q=ctx.L)
+    w = encryptor.encrypt_values(vb, n_q=ctx.L)
+    sev = ShardedEvaluator(ev, mesh)
+    return ShardedCCMM(
+        lambda a, b: ccmm_col_to_diag_sharded(sev, a, b, num_x, num_row,
+                                              col_chunk),
+        lambda a, b: ccmm_col_to_diag(ev, a, b, num_x, num_row,
+                                      col_chunk=col_chunk),
+        shard, x, w, ctx, decryptor, (va, vb), num_x, num_row)

@@ -20,6 +20,8 @@ package's pairwise ``add_mod`` chain gives.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -55,6 +57,24 @@ class Evaluator:
         # as each of the ops below returns (utils/debug.OpTrace)
         self.debug = None
 
+    def to(self, device) -> "Evaluator":
+        """This evaluator's replica on ``device``: its context and keys moved
+        there (``Context.to``, ``KSwitchKey.to``, ``GaloisKeys.to``),
+        nothing recomputed; the evaluator itself when it is there."""
+        ctx = self.ctx.to(device)
+        if ctx is self.ctx:
+            return self
+        out = copy.copy(self)
+        out.ctx, out.device, out.dev = ctx, ctx.device, ctx.dev
+        out.tbd = ctx.dev["ntt"]
+        out.relin_key = None if self.relin_key is None else \
+            self.relin_key.to(ctx.device)
+        out.galois_keys = None if self.galois_keys is None else \
+            self.galois_keys.to(ctx.device)
+        out._perm_cache = {g: p.to(ctx.device)
+                           for g, p in self._perm_cache.items()}
+        return out
+
     def _dbg(self, name: str, ct: Ciphertext) -> Ciphertext:
         if self.debug is not None:
             self.debug(name, ct)
@@ -69,10 +89,15 @@ class Evaluator:
 
     def _qt(self, n_q):
         """Moduli and R^-1 of the key-switching targets Q_l + P."""
+        return self._targets(0, n_q, 0, self.ctx.K)
+
+    def _targets(self, lo: int, hi: int, plo: int, phi: int):
+        """Moduli and R^-1 [T, 1] of the key-switching targets Q limbs
+        [lo, hi) and special limbs [plo, phi) (a limb shard's share)."""
         L = self.ctx.L
         q, rinv = self.dev["q"], self.dev["rinv"]
-        return (torch.cat([q[:n_q], q[L:]]).reshape(-1, 1),
-                torch.cat([rinv[:n_q], rinv[L:]]).reshape(-1, 1))
+        return (torch.cat([q[lo:hi], q[L + plo:L + phi]]).reshape(-1, 1),
+                torch.cat([rinv[lo:hi], rinv[L + plo:L + phi]]).reshape(-1, 1))
 
     def _check_add(self, op, a, b):
         _require(a.n_q == b.n_q, f"{op}: levels {a.n_q} vs {b.n_q}")
@@ -111,10 +136,13 @@ class Evaluator:
                                            self._q(a.n_q)))
 
     # -- scalar constants ---------------------------------------------------
-    def _const_residues_mont(self, value: float, scale: float, n_q: int):
-        """round(value*scale) as per-limb Montgomery residues [n_q, 1]."""
+    def _const_residues_mont(self, value: float, scale: float, n_q: int,
+                             lo: int = 0):
+        """round(value*scale) as per-limb Montgomery residues [n_q - lo, 1]
+        of limbs [lo, n_q)."""
         v = int(round(value * scale))
-        out = [(v % q) * ((1 << 32) % q) % q for q in self.ctx.q_primes[:n_q]]
+        out = [(v % q) * ((1 << 32) % q) % q
+               for q in self.ctx.q_primes[lo:n_q]]
         return torch.tensor(out, dtype=torch.int32,
                             device=self.device).reshape(-1, 1)
 
@@ -151,25 +179,36 @@ class Evaluator:
         """Dyadic ct*ct product -> 3-poly ciphertext."""
         _require(a.n_q == b.n_q and a.n_polys == 2 and b.n_polys == 2,
                  "multiply: two 2-poly ciphertexts at one level")
-        q, rinv = self._q(a.n_q), self._rinv(a.n_q)
-        a0, a1 = a.data[..., 0, :, :], a.data[..., 1, :, :]
-        b0, b1 = b.data[..., 0, :, :], b.data[..., 1, :, :]
+        return self._dbg("multiply", Ciphertext(
+            self._dyadic(a.data, b.data, self._q(a.n_q), self._rinv(a.n_q)),
+            a.scale * b.scale, True))
+
+    @staticmethod
+    def _dyadic(a, b, q, rinv):
+        """The 3-poly dyadic product of 2-poly data [..., 2, n, N] modulo
+        the per-limb q, rinv [n, 1]."""
+        a0, a1 = a[..., 0, :, :], a[..., 1, :, :]
+        b0, b1 = b[..., 0, :, :], b[..., 1, :, :]
         c0 = ma.mont_mul(a0, b0, q, rinv)
         c1 = ma.add_mod(ma.mont_mul(a0, b1, q, rinv),
                         ma.mont_mul(a1, b0, q, rinv), q)
         c2 = ma.mont_mul(a1, b1, q, rinv)
-        return self._dbg("multiply", Ciphertext(
-            torch.stack([c0, c1, c2], dim=-3), a.scale * b.scale, True))
+        return torch.stack([c0, c1, c2], dim=-3)
 
     def square(self, a: Ciphertext) -> Ciphertext:
-        q, rinv = self._q(a.n_q), self._rinv(a.n_q)
-        a0, a1 = a.data[..., 0, :, :], a.data[..., 1, :, :]
+        return Ciphertext(self._square(a.data, self._q(a.n_q),
+                                       self._rinv(a.n_q)),
+                          a.scale * a.scale, True)
+
+    @staticmethod
+    def _square(a, q, rinv):
+        """The 3-poly square of 2-poly data modulo q, rinv [n, 1]."""
+        a0, a1 = a[..., 0, :, :], a[..., 1, :, :]
         c0 = ma.mont_mul(a0, a0, q, rinv)
         c1 = ma.mont_mul(a0, a1, q, rinv)
         c1 = ma.add_mod(c1, c1, q)
         c2 = ma.mont_mul(a1, a1, q, rinv)
-        return Ciphertext(torch.stack([c0, c1, c2], dim=-3),
-                          a.scale * a.scale, True)
+        return torch.stack([c0, c1, c2], dim=-3)
 
     def relinearize(self, a: Ciphertext) -> Ciphertext:
         _require(a.n_polys == 3 and self.relin_key is not None,
@@ -188,26 +227,36 @@ class Evaluator:
     # -- rescale / mod switch --------------------------------------------
     def rescale(self, a: Ciphertext) -> Ciphertext:
         """Drop the top prime, dividing the message by it."""
-        n_q = a.n_q
-        ell = n_q - 1
+        ell = a.n_q - 1
         _require(ell >= 1, "rescale: no prime left to drop")
-        dv = self.dev
+        u = self._rescale_top(a.data[..., ell:ell + 1, :], ell)
+        out = self._rescale_rest(a.data[..., :ell, :], u, ell, 0, ell)
+        return self._dbg("rescale", Ciphertext(
+            out, a.scale / self.ctx.q_primes[ell], True))
+
+    def _rescale_top(self, top, ell: int):
+        """The dropped limb ell [..., 1, N] (NTT form) -> coefficients ->
+        its true value u = [c_ell + q_ell/2], [..., 1, N]."""
         qe = int(self.ctx.q_primes[ell])
-        # last limb -> coefficients -> true value u = [c_ell + qe/2]
-        last = intt(a.data[..., ell:ell + 1, :], self.tbd,
-                    limb_slice=(ell, ell + 1))
+        last = intt(top, self.tbd, limb_slice=(ell, ell + 1))
         t = ma.from_mont(last, qe, int(self.ctx.ntt.rinv[ell]))
-        u = ma.add_mod(t, qe >> 1, qe)
-        # u to each remaining modulus (to_mont takes u >= q_j), minus the
-        # rounding half per coefficient, then back to the NTT domain
-        qj, rinvj = self._q(ell), self._rinv(ell)
-        uj = ma.to_mont(u, qj, rinvj, dv["r2"][:ell].reshape(-1, 1))
-        uj = ma.sub_mod(uj, dv["resc_half_mod"][ell, :ell].reshape(-1, 1), qj)
-        u_ntt = ntt(uj, self.tbd, limb_slice=(0, ell))
-        out = ma.sub_mont_mul(a.data[..., :ell, :], u_ntt,
-                              dv["resc_qlinv_mont"][ell, :ell].reshape(-1, 1),
-                              qj, rinvj)
-        return self._dbg("rescale", Ciphertext(out, a.scale / qe, True))
+        return ma.add_mod(t, qe >> 1, qe)
+
+    def _rescale_rest(self, x, u, ell: int, lo: int, hi: int):
+        """Limbs [lo, hi) of a ciphertext (x, NTT form) after dropping limb
+        ell: u (``_rescale_top``) to each modulus (to_mont takes u >= q_j),
+        minus the rounding half per coefficient, back to the NTT domain,
+        subtracted and divided by q_ell."""
+        dv = self.dev
+        qj = dv["q"][lo:hi].reshape(-1, 1)
+        rinvj = dv["rinv"][lo:hi].reshape(-1, 1)
+        uj = ma.to_mont(u, qj, rinvj, dv["r2"][lo:hi].reshape(-1, 1))
+        uj = ma.sub_mod(uj, dv["resc_half_mod"][ell, lo:hi].reshape(-1, 1),
+                        qj)
+        u_ntt = ntt(uj, self.tbd, limb_slice=(lo, hi))
+        return ma.sub_mont_mul(
+            x, u_ntt, dv["resc_qlinv_mont"][ell, lo:hi].reshape(-1, 1), qj,
+            rinvj)
 
     def rescale_pair(self, a: Ciphertext) -> Ciphertext:
         """One level rescale = two single-prime rescales (composite scale)."""
@@ -238,21 +287,30 @@ class Evaluator:
         -> y [..., D, n_t, N] (NTT Montgomery over Q_l + P).  The
         rotation-independent half of key switching (hoisted rotations reuse
         it)."""
-        ctx, dv = self.ctx, self.dev
-        L, K = ctx.L, ctx.K
-        nall = L + K
-        qt, rinvt = self._qt(n_q)
-        D = self._active_digits(n_q)
         c = intt(poly_ntt, self.tbd, limb_slice=(0, n_q))
+        return self._ks_extend(c, n_q, 0, n_q, 0, self.ctx.K)
+
+    def _ks_extend(self, c, n_q: int, lo: int, hi: int, plo: int, phi: int):
+        """The decomposition's base extension from the coefficient form c
+        [..., n_q, N] of all the level's limbs to the targets Q limbs
+        [lo, hi) and special limbs [plo, phi), NTT'd -> [..., D, T, N]."""
+        dv, L = self.dev, self.ctx.L
+        qt, rinvt = self._targets(lo, hi, plo, phi)
+        D = self._active_digits(n_q)
         # fast base extension y_t = sum_i lam_i * hat_i (Montgomery out) of
         # each digit's alpha limbs; past n_q the hat-inverse table is zero
         hat = dv["ks_hat_mm"][n_q, :D]                  # [D, alpha, nall]
-        hat_t = torch.cat([hat[..., :n_q], hat[..., L:]], dim=-1)
+        hat_t = torch.cat([hat[..., lo:hi], hat[..., L + plo:L + phi]], dim=-1)
         y = ma.base_conv(c, dv["ks_q_pad"], dv["ks_rinv_pad"],
                          dv["ks_hatinv_mont"][n_q, :D], hat_t, qt, rinvt)
-        y_q = ntt(y[..., :n_q, :], self.tbd, limb_slice=(0, n_q))
-        y_p = ntt(y[..., n_q:, :], self.tbd, limb_slice=(L, nall))
-        return torch.cat([y_q, y_p], dim=-2)            # [..., D, n_t, N]
+        nq = hi - lo
+        parts = []
+        if nq:
+            parts.append(ntt(y[..., :nq, :], self.tbd, limb_slice=(lo, hi)))
+        if phi > plo:
+            parts.append(ntt(y[..., nq:, :], self.tbd,
+                             limb_slice=(L + plo, L + phi)))
+        return torch.cat(parts, dim=-2) if len(parts) > 1 else parts[0]
 
     def _ks_mac_moddown(self, y, keys, q_limbs, n_q: int, perm=None):
         """MAC the decomposition y [..., D, n_t, N] against the key rows of
@@ -272,18 +330,23 @@ class Evaluator:
 
     def _mod_down_p(self, u, n_q: int):
         """Divide a [..., n_q+K, N] NTT poly by P, dropping the P limbs."""
-        dv = self.dev
         L, K = self.ctx.L, self.ctx.K
-        u_q = u[..., :n_q, :]
-        u_p = u[..., n_q:, :]
-        cp = intt(u_p, self.tbd, limb_slice=(L, L + K))
-        qj, rinvj = self._q(n_q), self._rinv(n_q)
+        cp = intt(u[..., n_q:, :], self.tbd, limb_slice=(L, L + K))
+        return self._mod_down_q(u[..., :n_q, :], cp, 0, n_q)
+
+    def _mod_down_q(self, u_q, cp, lo: int, hi: int):
+        """Q limbs [lo, hi) of the mod-down: u_q [..., hi-lo, N] (NTT) less
+        the conversion of cp, all K special limbs of the same accumulator
+        in coefficient form, times P^-1."""
+        dv, L = self.dev, self.ctx.L
+        qj = dv["q"][lo:hi].reshape(-1, 1)
+        rinvj = dv["rinv"][lo:hi].reshape(-1, 1)
         w = ma.base_conv(cp, dv["q"][L:], dv["rinv"][L:],
                          dv["pdown_hatinv_mont"],
-                         dv["pdown_hat_modq_mm"][None, :, :n_q], qj,
+                         dv["pdown_hat_modq_mm"][None, :, lo:hi], qj,
                          rinvj)[..., 0, :, :]
-        w_ntt = ntt(w, self.tbd, limb_slice=(0, n_q))
-        pinv = dv["pdown_pinv_mont"][:n_q].reshape(-1, 1)
+        w_ntt = ntt(w, self.tbd, limb_slice=(lo, hi))
+        pinv = dv["pdown_pinv_mont"][lo:hi].reshape(-1, 1)
         return ma.sub_mont_mul(u_q, w_ntt, pinv, qj, rinvj)
 
     # -- Galois / rotations ----------------------------------------------
@@ -385,16 +448,19 @@ class Evaluator:
         """Multiply by a small positive integer via doubling adds: no level,
         no scale change."""
         _require(n >= 1, "mul_int: n >= 1")
-        q = self._q(a.n_q)
+        return a.with_data(self._mul_int(a.data, n, self._q(a.n_q)))
+
+    @staticmethod
+    def _mul_int(x, n: int, q):
+        """n * x modulo q [n_limbs, 1] by doubling adds."""
         acc = None
-        cur = a.data
         while n:
             if n & 1:
-                acc = cur if acc is None else ma.add_mod(acc, cur, q)
+                acc = x if acc is None else ma.add_mod(acc, x, q)
             n >>= 1
             if n:
-                cur = ma.add_mod(cur, cur, q)
-        return a.with_data(acc)
+                x = ma.add_mod(x, x, q)
+        return acc
 
     def mul_const_to(self, a: Ciphertext, value: float,
                      target_scale: float) -> Ciphertext:

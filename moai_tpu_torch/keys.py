@@ -86,11 +86,24 @@ class KSwitchKey:
     # modulo a prefix of the chain is still a valid switching key
     q_limbs: int | None = None
 
+    def to(self, device) -> "KSwitchKey":
+        """The key on ``device`` (itself when it is there)."""
+        data = self.data.to(device)
+        return self if data is self.data else KSwitchKey(data, self.q_limbs)
+
 
 @dataclasses.dataclass
 class GaloisKeys:
     keys: dict                # galois element -> KSwitchKey
     perms: dict               # galois element -> np [N] NTT-domain gather index
+
+    def to(self, device) -> "GaloisKeys":
+        """The keys on ``device`` (themselves when they are there); the
+        permutations stay host arrays."""
+        keys = {g: k.to(device) for g, k in self.keys.items()}
+        if all(keys[g] is k for g, k in self.keys.items()):
+            return self
+        return GaloisKeys(keys, self.perms)
 
     @property
     def q_limbs(self) -> int | None:

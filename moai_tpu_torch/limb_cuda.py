@@ -12,7 +12,8 @@ path, and what the kernels are held ``torch.equal`` to on the card):
   limbs (the key-switch decomposition, the mod-down by P, ModRaise);
 - ``ks_mac``: the key-switch inner product over the active digits against
   both key rows, optionally through one permutation per rotation (the
-  hoisted rotations' gather);
+  hoisted rotations' gather); a key may be a window of the rows of a
+  contiguous key (a limb shard's rows, read in place);
 - ``diag_mac``: the bootstrap's sum of ciphertext-times-diagonal products
   of one giant step.
 
@@ -318,14 +319,30 @@ def mac_shape(y: torch.Tensor, keys: list, q_limbs: int, perm) -> tuple:
             perm is not None)
 
 
+def _key_row_stride(key: torch.Tensor) -> int:
+    """The rows between one key plane and the next of key [dnum, 2, KL, N]:
+    KL for a contiguous key, more for a window of the rows of a contiguous
+    key (``key[..., s:e, :]``, as a limb shard reads its rows); raises on
+    any other layout."""
+    _, _, KL, N = key.shape
+    s = key.stride()
+    if s[3] != 1 or s[2] != N or s[1] % N or s[1] < KL * N \
+            or (key.shape[0] > 1 and s[0] != 2 * s[1]):
+        raise ValueError(f"key {tuple(key.shape)} with strides {s} is not "
+                         f"contiguous or a window of the rows of a "
+                         f"contiguous key")
+    return s[1] // N
+
+
 def ks_mac(y, keys, q_limbs: int, tq, perm=None):
     """The key-switch MAC on the card: y [..., D, T, N] (contiguous int32,
     canonical) against the key rows of the first D digits of each key
-    [dnum, 2, q_limbs + K, N] (contiguous int32), target t read
-    at key limb t for t < T - K and q_limbs + t - (T - K) above, modulo tq.
-    Without perm, keys is one key and the result is (acc0, acc1), each
-    [..., T, N]; with perm [R, N], keys holds R keys, rotation r reads y at
-    perm[r] and each result is [R, ..., T, N]."""
+    [dnum, 2, q_limbs + K, N] (int32, contiguous or a window of the rows of
+    a contiguous key), target t read at key limb t for t < T - K and
+    q_limbs + t - (T - K) above, modulo tq.  Without perm, keys is one key
+    and the result is (acc0, acc1), each [..., T, N]; with perm [R, N],
+    keys holds R keys (one layout), rotation r reads y at perm[r] and each
+    result is [R, ..., T, N]."""
     keys = [keys] if perm is None else list(keys)
     device = _device_of([y, tq, *keys] + ([perm] if perm is not None else []))
     _int_tensor(y, "y")
@@ -333,16 +350,17 @@ def ks_mac(y, keys, q_limbs: int, tq, perm=None):
     if y.dim() < 3:
         raise ValueError(f"y {tuple(y.shape)} is not [..., D, T, N]")
     D, T, N = y.shape[-3:]
-    key_shape = keys[0].shape
+    key_shape, key_strides = keys[0].shape, keys[0].stride()
     for key in keys:
         _int_tensor(key, "key")
-        _contiguous(key, "key")
-        if key.shape != key_shape:
-            raise ValueError("the keys of one launch differ in shape")
+        if key.shape != key_shape or key.stride() != key_strides:
+            raise ValueError("the keys of one launch differ in shape or "
+                             "layout")
     if len(key_shape) != 4 or key_shape[0] < D or key_shape[1] != 2 \
             or key_shape[3] != N:
         raise ValueError(f"key {tuple(key_shape)} is not [>= {D}, 2, KL, {N}]")
     KL = key_shape[2]
+    stride = _key_row_stride(keys[0])
     n_q = T - (KL - q_limbs)
     if not 0 < n_q <= q_limbs:
         raise ValueError(f"{T} targets do not fit a key of {q_limbs} Q limbs "
@@ -362,7 +380,7 @@ def ks_mac(y, keys, q_limbs: int, tq, perm=None):
     out = torch.empty((2, R) + y.shape[:-3] + (T, N), dtype=torch.int32,
                       device=device)
     if B:
-        args = _KsMacArgs(y=y.data_ptr(), out=out.data_ptr(), B=B, KL=KL,
+        args = _KsMacArgs(y=y.data_ptr(), out=out.data_ptr(), B=B, KL=stride,
                           split=n_q, kgap=q_limbs - n_q, R=R, D=D, T=T, N=N)
         args.perm = perm.data_ptr() if perm is not None else None
         for r, key in enumerate(keys):

@@ -16,6 +16,7 @@ other a uint32 scratch the wrapper allocates; each call adds one to
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import functools
 
@@ -101,6 +102,18 @@ class CudaNttTables:
         self.q = dev(nt.q)
         for name, v in tabs.items():
             setattr(self, name, dev(np.stack(v)))
+
+    def to(self, device) -> "CudaNttTables":
+        """The same tables on another card (itself on this one)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        out = copy.copy(self)
+        out.device = device
+        for name in ("q", "fwd_cols", "fwd_mid", "fwd_rows", "inv_rows",
+                     "inv_mid", "inv_cols"):
+            setattr(out, name, getattr(self, name).to(device))
+        return out
 
     def row_ptr(self, t: torch.Tensor, lo: int) -> int:
         """Address of limb ``lo`` in a per-limb table (4-byte words)."""

@@ -215,27 +215,43 @@ def ccmm_col_to_diag(ev: Evaluator, x: Ciphertext, w: Ciphertext,
                                    num_row)
 
 
+# rotations per hoisted MAC in ccmm_col_to_diag_partial
+CCMM_ROT_CHUNK = 4
+
+
+def ccmm_col_rotations(num_x: int, num_row: int) -> tuple[list, list]:
+    """The double BSGS's rotation steps: W's baby steps s*num_x (0 < s <
+    g) and X's giant steps -g*bi*num_x (0 < bi < b)."""
+    g, b = _bsgs_split(num_row)
+    return ([s * num_x for s in range(1, g)],
+            [-gi * g * num_x for gi in range(1, b)])
+
+
 def ccmm_col_to_diag_partial(ev: Evaluator, x: Ciphertext, w: Ciphertext,
                              num_x: int, num_row: int) -> torch.Tensor:
     """One column chunk's double-BSGS partial products [b, g, 3, L, N]
     (3-poly, before relinearization).  Chunks add."""
-    g, b = _bsgs_split(num_row)
-    q = ev.dev["q"][:x.n_q].reshape(-1, 1)
-    rinv = ev.dev["rinv"][:x.n_q].reshape(-1, 1)
-    rot_chunk = 4
+    baby, giant = ccmm_col_rotations(num_x, num_row)
     wb = w.data[None]                                  # [g, c, 2, L, N]
-    if g > 1:
+    if baby:
         wb = torch.cat([wb, ev.rotate_hoisted(
-            w, [s * num_x for s in range(1, g)], chunk=rot_chunk).data])
+            w, baby, chunk=CCMM_ROT_CHUNK).data])
     xg = x.data[None]                                  # [b, c, 2, L, N]
-    if b > 1:
+    if giant:
         xg = torch.cat([xg, ev.rotate_hoisted(
-            x, [-gi * g * num_x for gi in range(1, b)], chunk=rot_chunk).data])
-    # per giant group, summed over the column axis c
-    w0, w1 = wb[:, :, 0], wb[:, :, 1]                  # [g, c, L, N]
+            x, giant, chunk=CCMM_ROT_CHUNK).data])
+    return ccmm_col_products(xg, wb, ev.dev["q"][:x.n_q].reshape(-1, 1),
+                             ev.dev["rinv"][:x.n_q].reshape(-1, 1))
+
+
+def ccmm_col_products(xg, wb, q, rinv) -> torch.Tensor:
+    """The partial products of the giant-rotated X [b, c, 2, n, N] and the
+    baby-rotated W [g, c, 2, n, N] modulo q, rinv [n, 1], per giant group
+    summed over the column axis c -> [b, g, 3, n, N]."""
+    w0, w1 = wb[:, :, 0], wb[:, :, 1]                  # [g, c, n, N]
     return torch.stack([
         _dyadic_sum(xg[bi, None, :, 0], xg[bi, None, :, 1], w0, w1, 1, q,
-                    rinv) for bi in range(b)])         # [b, g, 3, L, N]
+                    rinv) for bi in range(xg.shape[0])])
 
 
 def ccmm_col_to_diag_finish(ev: Evaluator, acc, prod_scale: float,

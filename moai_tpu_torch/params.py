@@ -15,6 +15,7 @@ Chain layout (composite scale: a data level is a pair of ~26-bit primes):
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -45,6 +46,17 @@ def check_device(ctx: "Context", device) -> torch.device:
     if dev.type != ctx.device.type:
         raise ValueError(f"context lives on {ctx.device}, not {dev}")
     return ctx.device
+
+
+def _moved(tree, device):
+    """A dict/list tree of tensors with every tensor on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_moved(v, device) for v in tree]
+    return tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +154,27 @@ class Context:
         self.ntt = NttTables(cfg.logN, self.all_primes)
         self._build_rns_tables()
         self.dev = self._device_tables()
+
+    def to(self, device) -> "Context":
+        """This context's replica on ``device``: the host tables shared, the
+        device tables moved there and nothing recomputed (a replica on a
+        card of a context without one builds the kernels' NTT tables); the
+        context itself when it is there already."""
+        dev = resolve_device(device)
+        if dev == self.device:
+            return self
+        out = copy.copy(self)
+        out.device = dev
+        out.dev = _moved({k: v for k, v in self.dev.items() if k != "ntt"},
+                         dev)
+        out.dev["ntt"] = _moved({k: v for k, v in self.dev["ntt"].items()
+                                 if k != "cuda"}, dev)
+        if dev.type == "cuda":
+            from .ntt_cuda import CudaNttTables
+            cuda = self.dev["ntt"].get("cuda")
+            out.dev["ntt"]["cuda"] = cuda.to(dev) if cuda is not None else \
+                CudaNttTables(self.ntt, dev)
+        return out
 
     def prime(self, i: int) -> int:
         return self.all_primes[i]

@@ -2,9 +2,12 @@
 kernels against their plain versions (int32 residues, the port's at-rest
 format; every wrapper refuses int64), a small encrypted head against the
 float64 oracle, a small bootstrap against the same bootstrap on the CPU,
-serial loads onto the card against loads onto the CPU, and a small
+serial loads onto the card against loads onto the CPU, a small
 two-layer model resumed from its layer-0 checkpoint against the same on
-the CPU.
+the CPU, and the sharded programs (parallel/sharding.py: the evaluator
+step over limb shards, the column-sharded CCMM and refresh) against the
+same programs unsharded on one card, over a virtual mesh on one card and
+over a mesh of real cards where the host has more than one.
 
 This file imports neither JAX nor moai_tpu, so it runs on a GPU host
 without them (tests/conftest.py imports JAX, hence ``--noconftest``):
@@ -23,12 +26,14 @@ from moai_tpu_torch import limb_cuda, ntt_cuda, serial
 from moai_tpu_torch import mod_arith as ma
 from moai_tpu_torch.encoder import Encoder
 from moai_tpu_torch.encrypt import Encryptor
-from moai_tpu_torch.entry import build_bootstrap, build_head, build_model
+from moai_tpu_torch.entry import (build_bootstrap, build_head, build_model,
+                                  build_sharded_ccmm, build_sharded_step)
 from moai_tpu_torch.keys import KeyGenerator
 from moai_tpu_torch.models.bert import BertDims, DepthPlan
 from moai_tpu_torch.ntt import ntt, intt, ntt_plain, intt_plain
 from moai_tpu_torch.params import CKKSConfig, Context, \
     test_config as _test_config
+from moai_tpu_torch.parallel.sharding import gather, make_mesh
 from moai_tpu_torch.primes import ntt_primes_near
 
 
@@ -260,6 +265,21 @@ def _limb_edge_shapes(ctx, res):
              ma.ks_mac_plain(y, keys[0], q_limbs, tq, trinv), D)
         same(ma.ks_mac(y, keys, q_limbs, tq, trinv, perm),
              ma.ks_mac_plain(y, keys, q_limbs, tq, trinv, perm), D)
+    # a limb shard's key rows read in place (parallel/sharding.py): Q rows
+    # from row 5 of whole keys and the special share [2, 4)
+    s0, plo, phi, n_q = 5, 2, 4, 6
+    tq = torch.cat([primes[s0:s0 + n_q],
+                    primes[q_limbs + plo:q_limbs + phi]]).reshape(-1, 1)
+    trinv = torch.cat([rinvs[s0:s0 + n_q],
+                       rinvs[q_limbs + plo:q_limbs + phi]]).reshape(-1, 1)
+    y = res(tq.reshape(-1), (3, 7))
+    keys = [res(primes[:KL], (7, 2))[..., s0:q_limbs + phi, :]
+            for _ in range(2)]
+    ql = q_limbs + plo - s0
+    same(ma.ks_mac(y, keys[0], ql, tq, trinv),
+         ma.ks_mac_plain(y, keys[0], ql, tq, trinv), "window")
+    same(ma.ks_mac(y, keys, ql, tq, trinv, perm),
+         ma.ks_mac_plain(y, keys, ql, tq, trinv, perm), "window")
 
 
 @pytest.mark.parametrize("logN", range(9, 17))
@@ -422,3 +442,65 @@ def test_model_resume_on_card_equals_cpu(card, tmp_path):
     got, want = out[card], out["cpu"]
     assert got.scale == want.scale
     assert torch.equal(got.data.cpu(), want.data)
+
+
+BOOT9 = CKKSConfig(logN=9, q0_bits=(30.0, 30.0), data_pair_bits=26.0,
+                   n_data_levels=13, dnum=7, special_bits=29.5,
+                   hamming_weight=64)
+STEP9 = CKKSConfig(logN=9, q0_bits=(30.0, 30.0), data_pair_bits=26.0,
+                   n_data_levels=7, n_boot_levels=0, dnum=2, hamming_weight=64)
+
+
+def _sharded_programs_equal_unsharded(devices):
+    """On meshes over ``devices`` (cards, possibly repeated): the evaluator
+    step on (1, 2) over limb and, given 4 devices, on (2, 2) over col and
+    limb (key rows copied to the cards without the keys alone); the CCMM
+    over (2, 1) and (1, 2); make_refresh over (2, 1) and (1, 2).  Each
+    gathered onto the first card and held torch.equal to the same program
+    unsharded there; every kernel the unsharded program launched also
+    launched in the sharded one."""
+    home = devices[0]
+    for n in (2, 4)[:len(devices) // 2]:
+        st = build_sharded_step(STEP9, 4, make_mesh(n, 2, devices[:n]),
+                                "limb", device=home)
+        want = st.plain(st.a, st.b)
+        limb_cuda.reset_launches()
+        ntt_cuda.reset_launches()
+        got = gather(st.fn(st.shard(st.a), st.shard(st.b)), home)
+        counts = {**limb_cuda.launches, **ntt_cuda.launches}
+        assert all(v > 0 for k, v in counts.items() if k != "diag_mac")
+        assert got.scale == want.scale and torch.equal(got.data, want.data)
+        # key rows are copied only to the cards that do not hold the keys
+        assert {k[1] for k in st.sev._key_rows} == set(devices[:n]) - {home}
+    mesh = make_mesh(2, 1, devices[:2])
+    cc = build_sharded_ccmm(STEP9, 64, 4, 4, mesh, col_chunk=1, device=home)
+    got = gather(cc.fn(cc.shard(cc.x), cc.shard(cc.w)), home)
+    want = cc.plain(cc.x, cc.w)
+    assert got.scale == want.scale and torch.equal(got.data, want.data)
+    cc = build_sharded_ccmm(STEP9, 64, 4, 4, make_mesh(2, 2, devices[:2]),
+                            mode="limb", col_chunk=1, device=home)
+    got = gather(cc.fn(cc.shard(cc.x), cc.shard(cc.w)), home)
+    assert torch.equal(got.data, want.data)
+    plain = build_bootstrap(BOOT9, 2, seed=101, device=home)
+    want = plain.fn(plain.x_data)
+    for n, la in ((2, 1), (2, 2)):
+        sharded = build_bootstrap(BOOT9, 2, seed=101, device=home,
+                                  mesh=make_mesh(n, la, devices[:n]))
+        limb_cuda.reset_launches()
+        got = sharded.fn(sharded.x_data)
+        assert limb_cuda.launches["diag_mac"] > 0
+        assert got.scale == want.scale and torch.equal(got.data, want.data)
+
+
+def test_sharded_programs_on_a_virtual_mesh(card):
+    """Four mesh positions on one card, as the JAX tests' virtual CPU
+    devices time-share one host."""
+    _sharded_programs_equal_unsharded([torch.device("cuda", 0)] * 4)
+
+
+def test_sharded_programs_on_real_cards(card):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"a mesh of real cards needs two; this host has {n}")
+    _sharded_programs_equal_unsharded(
+        [torch.device("cuda", i) for i in range(min(n, 4))])

@@ -271,18 +271,21 @@ def k_base_conv(x, src_q, hatinv, hat, tq, k=None, kq=None):
     return out.reshape(x.shape[:-2] + (D, T, Nn))
 
 
-def k_ks_mac(y, keys, q_limbs, tq, perm=None):
+def k_ks_mac(y, keys, q_limbs, tq, perm=None, window=None):
     """The ks_mac kernel step for step on flat arrays: the grid's rows
     rt over (t, r), r fastest, each thread's coefficient n = blockIdx.x *
     256 + threadIdx.x, its key values and perm[r, n] loaded once, the loop
     over the B rows of y, groups of four digits per REDC, and the flat
-    output index of [2, R, B, T, N]."""
+    output index of [2, R, B, T, N].  With window (s, rows) each key is a
+    whole contiguous key of which the launch reads rows [s, s + rows): the
+    planes as far apart as the whole key's rows, the pointer at row s."""
     y = np.asarray(y, I64)
     D, T, Nn = y.shape[-3:]
     B = y.size // (D * T * Nn)
     keys = [keys] if perm is None else keys
     R, KL = len(keys), keys[0].shape[-2]
-    n_q = T - (KL - q_limbs)
+    row0, rows = (0, KL) if window is None else window
+    n_q = T - (rows - q_limbs)
     split, kgap = n_q, q_limbs - n_q
     MAXD = mac_bucket(D)
     yf = y.reshape(-1)
@@ -296,7 +299,7 @@ def k_ks_mac(y, keys, q_limbs, tq, perm=None):
         q = int(tq[t])
         src = n if perm is None else np.asarray(perm).reshape(-1)[r * Nn + n]
         kl = t if t < split else t + kgap
-        kf = np.asarray(keys[r]).reshape(-1)
+        kf = np.asarray(keys[r]).reshape(-1)[row0 * Nn:]
         k0 = [kf[2 * d * plane + kl * Nn + n].astype(U32).astype(U64)
               for d in range(D)]
         k1 = [kf[(2 * d + 1) * plane + kl * Nn + n].astype(U32).astype(U64)
@@ -582,6 +585,35 @@ def test_tile_maps_buckets_and_lazy_groups():
         w = ma.ks_mac_plain(T(y), keys, q_limbs, T(tq), trinv, T(perm))
         g = k_ks_mac(y, [k.numpy() for k in keys], q_limbs, tq, perm)
         assert all(np.array_equal(a, b.numpy()) for a, b in zip(g, w)), D
+
+    # ks_mac on a window of a key's rows, as a limb shard reads its rows in
+    # place: Q rows from s = 5 and the special share [2, 4) of kp = 4, so
+    # the share starts at row q_limbs + 2 - s of the window
+    s0, plo, phi, n_q = 5, 2, 4, 6
+    tq = np.concatenate([qall[s0:s0 + n_q], qall[q_limbs + plo:q_limbs + phi]])
+    trinv = torch.cat([dv["rinv"][s0:s0 + n_q],
+                       dv["rinv"][q_limbs + plo:q_limbs + phi]])
+    y = residues(tq, (3, 7), rng, n=n)
+    keys = [T(residues(qall[:KL], (7, 2), rng, n=n)).int() for _ in perm]
+    views = [k[..., s0:q_limbs + phi, :] for k in keys]
+    assert limb_cuda._key_row_stride(views[0]) == KL
+    window = (s0, q_limbs + phi - s0)
+    w = ma.ks_mac_plain(T(y), views[0], q_limbs + plo - s0, T(tq), trinv)
+    assert all(torch.equal(a, b) for a, b in zip(w, ma.ks_mac_plain(
+        T(y), torch.cat([keys[0][..., s0:s0 + n_q, :],
+                         keys[0][..., q_limbs + plo:q_limbs + phi, :]], -2),
+        n_q, T(tq), trinv)))
+    g = k_ks_mac(y, keys[0].numpy(), q_limbs + plo - s0, tq, window=window)
+    assert all(np.array_equal(a, b.numpy()) for a, b in zip(g, w)), "window"
+    w = ma.ks_mac_plain(T(y), views, q_limbs + plo - s0, T(tq), trinv,
+                        T(perm))
+    g = k_ks_mac(y, [k.numpy() for k in keys], q_limbs + plo - s0, tq, perm,
+                 window)
+    assert all(np.array_equal(a, b.numpy()) for a, b in zip(g, w)), "window"
+    # a key cut along any other axis is no window of rows
+    for bad in (keys[0][..., :n // 2], keys[0][::2], keys[0].transpose(2, 3)):
+        with pytest.raises(ValueError, match="window of the rows"):
+            limb_cuda._key_row_stride(bad)
 
     # diag_mac at every bucket of its term count, past one block
     n, L = 1024, 3
