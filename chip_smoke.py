@@ -55,23 +55,35 @@ that file, so two versions compare in one call).
    over (2, 1) and, limbs split, (1, 2); the evaluator step of
    tools/scaling_sweep.py (multiply, relinearize, rescale twice, rotate
    by 1) on the bootstrap's output (42 limbs) over (1, 2) and (2, 2),
-   limbs split.  A mesh whose limb axis is 1 splits the columns only.
+   limbs split; then, the bootstrap's objects freed, the head phase's
+   whole head (entry.shard_head, the port of __graft_entry__.
+   dryrun_multichip: nothing of its width cut) over (2, 1) (the input's
+   columns split) and (1, 2) and (2, 2) (the input at P("col", None,
+   "limb", None)).  A mesh whose limb axis is 1 splits the columns only.
    Each runs unsharded and then sharded on the same input, the launch
    counts set to 0 and the peak counters reset before each: the gathered
    output is held torch.equal to the unsharded one (gated), every kernel
    the unsharded run launched must have launched in the sharded one
-   (gated), and a sharded bootstrap may peak on no card above
-   SHARD_BOOT_PEAK_RATIO times the unsharded run's peak (gated); the
-   seconds of both, the memory held before and the peak of both runs on
-   each card of the mesh, and the bytes moved between mesh positions
-   (sharding.moved).  With more than one card the same programs run again
-   on meshes of real cards (per-card peak); on a one-card host that run
-   is reported as not possible.  Then every kernel is held torch.equal
-   to its plain version and timed at a limb shard's window of the
-   bootstrap's chain (the (1, 2) mesh's second position after ModRaise:
-   its Q limbs [37, 74), its special limbs [6, 13), its key rows read in
-   place from row 37 of whole keys), and base_conv and ks_mac again at
-   the sharded runs' commonest launch shapes at N = 2^16.
+   (gated), a sharded bootstrap may peak on no card above
+   SHARD_BOOT_PEAK_RATIO times the unsharded run's peak (gated), and a
+   sharded head on one card not above the unsharded head's peak plus
+   the bytes its placement copied plus SHARD_HEAD_PEAK, nor keeping more
+   than SHARD_HEAD_KEPT allocated after it (both gated); the seconds of
+   both, the memory held before, kept after and the peak of both runs on
+   each card of the mesh (for the head, also its own peak above the
+   memory held), and the bytes moved between mesh positions
+   (sharding.moved) and those of them copied (sharding.copied).  With more than
+   one card the same programs run again on meshes of real cards
+   (per-card peak); on a one-card host that run is reported as not
+   possible.  Then every kernel is held torch.equal to its plain version
+   and timed at a limb shard's window of the bootstrap's chain (the
+   (1, 2) mesh's second position after ModRaise: its Q limbs [37, 74),
+   its special limbs [6, 13), its key rows read in place from row 37 of
+   whole keys), and base_conv and ks_mac again at the sharded runs'
+   commonest launch shapes at N = 2^16 (path "shard"); and the same at
+   the head's chain (Q [17, 34), special [5, 11), the head's sharded
+   runs' launches and launch shapes; path "shard_head", without
+   diag_mac).
 5. model: the stacked encoder at full BERT-base width, MODEL_LAYERS of its
    12 layers (entry.build_model: d_model 768, 12 heads of 64, d_inter 3072,
    128 tokens, 128 inputs, logN 15, L 28, DepthPlan(5, 5, 2, 0, 16),
@@ -106,8 +118,8 @@ ks_mac at its commonest hoisted shape through real Galois permutations
 
 Prints a {"kernels": [...]} line, one row per kernel and path (diag_mac
 on the bootstrap and shard only): each row's check and timings come from
-that path's context (the shard path's: the window above) and its
-launches from that path's run (the shard path's: all its sharded runs);
+that path's context (the shard paths': the windows above) and its
+launches from that path's run (the shard paths': all their sharded runs);
 the limb kernels'
 bound is the larger of the byte bound (the tensors' own element sizes:
 4-byte residues) and the integer bound (``bound_by``), the NTT's the
@@ -220,6 +232,7 @@ MAIN_SHAPES = {
 # transforms only.
 PATH_KERNELS = {"bootstrap": list(KERNELS), "shard": list(KERNELS),
                 "head": [k for k in KERNELS if k != "diag_mac"],
+                "shard_head": [k for k in KERNELS if k != "diag_mac"],
                 "model": [k for k in KERNELS if k != "diag_mac"],
                 "layer": [k for k in KERNELS if k != "diag_mac"]}
 
@@ -227,7 +240,7 @@ PATH_KERNELS = {"bootstrap": list(KERNELS), "shard": list(KERNELS),
 # The shard phase: the (col, limb) shapes of its virtual meshes on cuda:0,
 # by program; the CCMM's columns (of the head's 768-column input).
 SHARD_MESHES = {"bootstrap": [(2, 1), (1, 2)], "ccmm": [(2, 1), (1, 2)],
-                "step": [(1, 2), (2, 2)]}
+                "step": [(1, 2), (2, 2)], "head": [(2, 1), (1, 2), (2, 2)]}
 SHARD_CCMM_COLUMNS = 64
 # The most a sharded bootstrap may peak at on any card, as a multiple of
 # the unsharded run's peak on the same card just before: a limb shard reads
@@ -235,6 +248,18 @@ SHARD_CCMM_COLUMNS = 64
 # all-gathered and per-position buffers, and never a copy of the keys
 # (29.3 GB at flagship_config).
 SHARD_BOOT_PEAK_RATIO = 1.1
+# The most the sharded head may peak at on one card above the unsharded
+# head's peak and the bytes its placement copied (a limb shard of the
+# input is a strided slice; a column shard is a view), in GiB: its
+# per-position partials and buffers.
+SHARD_HEAD_PEAK = 1.0
+# The most the sharded head on one card may leave allocated after its run
+# (its output freed) above what the card held before it, in GiB.  A
+# virtual mesh keeps nothing of its own (a replica on the keys' card is
+# the object itself, key rows are read in place), so a kept copy of the
+# head's 32 keys (1.05 GiB) fails.  The peak gate cannot see one: the
+# sharded head peaks below the unsharded one.
+SHARD_HEAD_KEPT = 0.25
 
 START = time.time()
 INT32_OPS_PER_S = [0.0]         # set in main from the card
@@ -918,22 +943,27 @@ def sync_all(mesh) -> None:
 
 
 def sharded_vs_unsharded(name: str, mesh, unsharded, sharded, shapes: dict,
-                         peak_ratio: float | None = None) -> dict:
+                         peak_limit=None, kept_limit=None) -> dict:
     """One program unsharded on the card and then sharded over ``mesh``, the
     launch counts set to 0 and the peak memory counters reset before each:
     the gathered output torch.equal to the unsharded one and every kernel
     the unsharded run launched launched again (both gated); with
-    ``peak_ratio``, no card's peak in the sharded run above ``peak_ratio``
-    times the unsharded run's (gated).  Adds the sharded run's launch
-    shapes (limb_cuda.shapes) to ``shapes``.  Returns the seconds,
-    launches, the memory held before each run and each card's peak, and
-    the bytes moved between mesh positions."""
+    ``peak_limit`` (the unsharded run's peak in GiB and the sharded run's
+    bytes moved and bytes copied by kind -> GiB), no card's peak in the
+    sharded run above it (gated); with ``kept_limit`` (GiB), no card
+    holding more than that after both runs, their outputs freed, than
+    before them (gated).  Adds the sharded run's launch shapes
+    (limb_cuda.shapes) to ``shapes``.  Returns the seconds, launches, the
+    memory held before each run and kept after them, each card's peak,
+    and the bytes moved between mesh positions and those copied."""
     from moai_tpu_torch.parallel import sharding
     gib = 2**30
     reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / gib
+    before = {str(d): torch.cuda.memory_allocated(d) / gib
+              for d in mesh.distinct()}
     t0 = time.perf_counter()
     want = unsharded()
     torch.cuda.synchronize()
@@ -962,25 +992,34 @@ def sharded_vs_unsharded(name: str, mesh, unsharded, sharded, shapes: dict,
            "unsharded_s": plain_s, "sharded_s": secs,
            "unsharded_held_gib": held, "unsharded_peak_gib": plain_peak,
            "held_gib": held_sharded, "peak_gib": peak,
-           "peak_ratio_limit": peak_ratio,
+           "peak_limit_gib": None if peak_limit is None else
+           peak_limit(plain_peak, sharding.moved, sharding.copied),
            "moved_bytes": dict(sharding.moved),
+           "copied_bytes": dict(sharding.copied),
            "unsharded_launches": plain_launches, "launches": launches,
            "equal": bool(got.scale == want.scale
                          and got.data.shape == want.data.shape
                          and torch.equal(got.data, want.data))}
     require_int32(f"the sharded {name}'s output", got.data)
-    log(f"shard {name} on mesh {mesh}: {json.dumps(rec)}")
     del got, want
+    rec["kept_gib"] = kept = {
+        str(d): torch.cuda.memory_allocated(d) / gib - before[str(d)]
+        for d in mesh.distinct()}
+    log(f"shard {name} on mesh {mesh}: {json.dumps(rec)}")
     if not rec["equal"]:
         raise SystemExit(f"the sharded {name} differs from the unsharded one")
     missing = [k for k, v in plain_launches.items()
                if v > 0 and launches[k] <= 0]
     if missing:
         raise SystemExit(f"the sharded {name} launched no {missing}")
-    if peak_ratio is not None and max(peak.values()) > peak_ratio * plain_peak:
+    limit = rec["peak_limit_gib"]
+    if limit is not None and max(peak.values()) > limit:
         raise SystemExit(f"the sharded {name} peaked at {peak} GiB, above "
-                         f"{peak_ratio} x the unsharded run's "
-                         f"{plain_peak:.2f} GiB")
+                         f"its limit of {limit:.2f} GiB (the unsharded run "
+                         f"peaked at {plain_peak:.2f})")
+    if kept_limit is not None and max(kept.values()) > kept_limit:
+        raise SystemExit(f"the sharded {name} left {kept} GiB allocated, "
+                         f"above its limit of {kept_limit} GiB")
     return rec
 
 
@@ -1012,7 +1051,8 @@ def shard_programs(boot, head, devices, meshes, shapes: dict) -> list:
             return boot_out[0]
         recs.append(sharded_vs_unsharded(
             "bootstrap (make_refresh)", mesh_of(c, l), unsharded,
-            lambda: refresh(x, boot.n_out), shapes, SHARD_BOOT_PEAK_RATIO))
+            lambda: refresh(x, boot.n_out), shapes,
+            lambda plain, *_: SHARD_BOOT_PEAK_RATIO * plain))
         del refresh
         gc.collect()
         torch.cuda.empty_cache()
@@ -1055,15 +1095,57 @@ def shard_programs(boot, head, devices, meshes, shapes: dict) -> list:
     return recs
 
 
+def shard_head_programs(head, devices, meshes, shapes: dict,
+                        gate: bool) -> list:
+    """The head phase's head over meshes of ``devices`` (``meshes``: the
+    (col, limb) shapes; the input at P("col", None, None, None) where the
+    limb axis is 1, else at P("col", None, "limb", None)): records of
+    sharded_vs_unsharded, the launch shapes of the sharded runs added to
+    ``shapes``; with ``gate`` (one card), the sharded run's peak held to
+    the unsharded run's peak plus the bytes its placement copied plus
+    SHARD_HEAD_PEAK, and what it keeps to SHARD_HEAD_KEPT.  Logs each
+    run's own peaks above the memory held before it."""
+    from moai_tpu_torch.entry import shard_head
+    from moai_tpu_torch.parallel import sharding as sh
+    recs = []
+    for c, l in meshes:
+        mesh = sh.make_mesh(c * l, limb_axis=l, devices=devices[:c * l])
+        S = shard_head(head, mesh, "limb" if l > 1 else "col")
+        split = "col and limb" if l > 1 else "col"
+        rec = sharded_vs_unsharded(
+            f"head ({HEAD['d_model']} columns, the input over {split})", mesh,
+            lambda: head.fn(head.x_data),
+            lambda: sh.gather(S.fn(head.x_data), devices[0]), shapes,
+            (lambda plain, moved, copied: plain + copied["scatter"] / 2**30
+             + SHARD_HEAD_PEAK) if gate else None,
+            SHARD_HEAD_KEPT if gate else None)
+        own = {d: round(v - rec["held_gib"][d], 3)
+               for d, v in rec["peak_gib"].items()}
+        log(f"shard head on {rec['mesh']}: its own peak above the memory "
+            f"held before it: unsharded "
+            f"{rec['unsharded_peak_gib'] - rec['unsharded_held_gib']:.3f} "
+            f"GiB (of {rec['unsharded_held_gib']:.3f} held), sharded "
+            f"{json.dumps(own)} GiB; limit {rec['peak_limit_gib']} GiB; "
+            f"kept after the runs {json.dumps(rec['kept_gib'])} GiB")
+        recs.append(rec)
+        del S
+        gc.collect()
+        torch.cuda.empty_cache()
+    return recs
+
+
 def run_shard() -> dict:
     """The shard phase: the sharded programs on virtual meshes of cuda:0
     (and on real cards where there are several), each held torch.equal to
-    its unsharded run; then every kernel held against its plain version
-    at a limb shard's window of the bootstrap's chain (the second position
-    of the (1, 2) mesh after ModRaise: Q limbs [L/2, L), special limbs
-    [K/2, K), the key rows read in place), and base_conv and ks_mac at the
-    sharded runs' commonest launch shapes at that chain.  Returns the kernels'
-    measurements with the launches of the sharded runs."""
+    its unsharded run, the head's last, after the bootstrap's objects are
+    freed; then every kernel held against its plain version at a limb
+    shard's window of the bootstrap's chain (the second position of the
+    (1, 2) mesh after ModRaise: Q limbs [L/2, L), special limbs [K/2, K),
+    the key rows read in place) and of the head's (Q [L/2, L), special
+    [K/2, K)), and base_conv and ks_mac at the sharded runs' commonest
+    launch shapes at each chain.  Returns the kernels' measurements of the
+    paths "shard" (the launches of the bootstrap's, the CCMM's and the
+    step's sharded runs) and "shard_head" (those of the head's)."""
     from moai_tpu_torch.entry import build_bootstrap, build_head
     from moai_tpu_torch.params import flagship_config
     t0 = time.time()
@@ -1081,40 +1163,59 @@ def run_shard() -> dict:
         f"head's contexts and keys; built here only when their phases did "
         f"not run); {torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
     card0 = torch.device("cuda", 0)
+    n = torch.cuda.device_count()
+    real = [torch.device("cuda", i) for i in range(n)]
+    meshes = {k: [m for m in v if m[0] * m[1] <= n]
+              for k, v in SHARD_MESHES.items()}
     shapes = {"base_conv": {}, "ks_mac": {}}
     recs = shard_programs(boot, head, [card0] * 4, SHARD_MESHES, shapes)
-    n = torch.cuda.device_count()
     if n > 1:
-        real = [torch.device("cuda", i) for i in range(n)]
-        meshes = {k: [m for m in v if m[0] * m[1] <= n]
-                  for k, v in SHARD_MESHES.items()}
         log(f"shard on real cards: {n} cards, meshes {meshes}")
         recs += shard_programs(boot, head, real, meshes, shapes)
     else:
         log(f"shard on real cards: not possible, this host has {n} card "
             f"(a mesh of real cards needs two or more)")
-    total = dict.fromkeys(KERNELS, 0)
-    for r in recs:
-        for k in KERNELS:
-            total[k] += r["launches"][k]
-    log(f"shard: {len(recs)} sharded runs, each equal to its unsharded "
-        f"run; launches in the sharded runs {total}")
     ctx = boot.ctx
-    del boot, head
+    del boot
     gc.collect()
     torch.cuda.empty_cache()
-    window = (ctx.L // 2, ctx.L, ctx.K // 2, ctx.K)
-    log(f"shard kernels at the window Q {window[:2]}, special "
-        f"{window[2:]} of the bootstrap's chain")
-    kern = check_kernels(ctx, "shard", window)
-    require_launches("shard", total, kern)
-    # the launches at the bootstrap's N (the bootstrap and the step; the
-    # CCMM runs on the head's chain)
-    N = ctx.cfg.N
-    time_main_shapes(ctx, kern, {k: {sh: c for sh, c in v.items()
-                                     if sh[5 if k == "base_conv" else 4] == N}
-                                 for k, v in shapes.items()})
-    return kern
+    log(f"shard: the bootstrap's objects freed, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    head_shapes = {"base_conv": {}, "ks_mac": {}}
+    head_recs = shard_head_programs(head, [card0] * 4, SHARD_MESHES["head"],
+                                    head_shapes, gate=True)
+    if n > 1:
+        head_recs += shard_head_programs(head, real, meshes["head"],
+                                         head_shapes, gate=False)
+    hctx = head.ctx
+    del head
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {}
+    for path, rs, c, pshapes in (("shard", recs, ctx, shapes),
+                                 ("shard_head", head_recs, hctx,
+                                  head_shapes)):
+        total = dict.fromkeys(KERNELS, 0)
+        for r in rs:
+            for k in KERNELS:
+                total[k] += r["launches"][k]
+        log(f"{path}: {len(rs)} sharded runs, each equal to its unsharded "
+            f"run; launches in the sharded runs {total}")
+        window = (c.L // 2, c.L, c.K // 2, c.K)
+        log(f"{path} kernels at the window Q {window[:2]}, special "
+            f"{window[2:]} of the {'head' if rs is head_recs else 'bootstrap'}"
+            f"'s chain")
+        kern = check_kernels(c, path, window)
+        require_launches(path, total, kern)
+        # the launches at the chain's N (the CCMM of the "shard" path runs
+        # on the head's chain)
+        N = c.cfg.N
+        time_main_shapes(c, kern, {
+            k: {s: m for s, m in v.items()
+                if s[5 if k == "base_conv" else 4] == N}
+            for k, v in pshapes.items()})
+        paths[path] = kern
+    return paths
 
 
 def layer_stages(refresh_log, t0: float) -> list:
@@ -1406,7 +1507,9 @@ def main() -> int:
     paths = {}
     for name in chosen:
         kern = phases[name]()
-        if kern is not None:
+        if name == "shard":
+            paths.update(kern)
+        elif kern is not None:
             paths[name] = kern
         gc.collect()
         torch.cuda.empty_cache()

@@ -20,6 +20,9 @@ bootstrap, end to end.
   sharded programs (``tools/scaling_sweep.py``'s evaluator step,
   ``tools/multichip_dryrun.py``'s CCMM) on a mesh, beside the same
   program unsharded.
+- ``build_sharded_head`` (``shard_head`` of a built ``Head``): the head
+  over a ("col", "limb") mesh, the port of ``__graft_entry__.
+  dryrun_multichip``, beside ``build_head``'s unsharded head.
 
 ``head_oracle`` and ``layer_oracle`` (chained by ``Model.oracle``) compute
 the same functions, with the circuits' own polynomial approximations, in
@@ -53,7 +56,9 @@ from .ops.nonlinear import (softmax_diag, diag_valid_masks, fit_gelu_cheb,
 from .ops.packing import batch_input, bias_vec, unpack_batch
 from .params import CKKSConfig, Context, head_config, resolve_device
 from .parallel.sharding import (Mesh, ShardedCiphertext, ShardedEvaluator,
-                                ccmm_col_to_diag_sharded, shard_ciphertext)
+                                ccmm_col_to_diag_sharded,
+                                ccmm_diag_to_col_sharded, cpmm_sharded,
+                                shard_ciphertext, softmax_diag_sharded)
 from . import serial
 from .utils.recrypt import Recryptor
 
@@ -75,6 +80,12 @@ class Head:
     exp_r: int
     inv_iters: int
     ev: Evaluator              # its keys: relinearization, both CCMMs' steps
+    encoder: Encoder
+    mms: tuple                 # the Q, K and V CPMMs
+    masks: np.ndarray          # the softmax's diagonal masks
+    n_v: int                   # the level of V and of the softmax output
+    col_chunk: int             # the QK^T CCMM's column chunk
+    x_scale: float             # the input's encoding scale
 
     def decode(self, out: Ciphertext) -> np.ndarray:
         """Decrypt the head output -> [input_count, num_row, head_dim]."""
@@ -185,7 +196,8 @@ def build_head(logN: int, n_data_levels: int, num_x: int, num_row: int,
     x0 = batch_input(encryptor, xs, num_x, num_row, scale=x_scale, n_q=n_att)
     return Head(head_fn, x0.data, ctx,
                 Decryptor(ctx, enc, kg.sk, device=dev), xs, dict(weights),
-                np.asarray(lens), num_x, num_row, exp_r, inv_iters, ev)
+                np.asarray(lens), num_x, num_row, exp_r, inv_iters, ev, enc,
+                (q_mm, k_mm, v_mm), masks, n_v, col_chunk, x_scale)
 
 
 def head_oracle(xs: np.ndarray, weights: dict, lens, exp_r: int,
@@ -691,3 +703,64 @@ def build_sharded_ccmm(cfg: CKKSConfig, num_x: int, num_row: int,
         lambda a, b: ccmm_col_to_diag(ev, a, b, num_x, num_row,
                                       col_chunk=col_chunk),
         shard, x, w, ctx, decryptor, (va, vb), num_x, num_row)
+
+
+@dataclasses.dataclass
+class ShardedHead:
+    fn: Callable[[torch.Tensor], ShardedCiphertext]   # x data -> output
+    plain: Callable[[torch.Tensor], Ciphertext]        # the unsharded head
+    head: Head
+    sev: ShardedEvaluator
+    mesh: Mesh
+    mode: str
+
+
+def shard_head(head: Head, mesh: Mesh, mode: str) -> ShardedHead:
+    """``head`` over ``mesh``: ``fn`` places the input at P("col", None,
+    "limb", None) (``mode`` "limb"; "col": P("col", None, None, None), as
+    ``_shard_for``), runs the Q/K/V CPMMs (``cpmm_sharded``, their outputs'
+    columns over col), QK^T (``ccmm_col_to_diag_sharded``), the softmax
+    (``softmax_diag_sharded``, the identity refresh) and softmax x V
+    (``ccmm_diag_to_col_sharded``) through one ``ShardedEvaluator``, and
+    returns the output with its columns over col.  Every residue is the
+    unsharded head's."""
+    sev = ShardedEvaluator(head.ev, mesh)
+    shard = _shard_for(mesh, mode)
+    q_mm, k_mm, v_mm = head.mms
+
+    def fn(x_data: torch.Tensor) -> ShardedCiphertext:
+        x = shard(Ciphertext(x_data, head.x_scale, True))
+        q = cpmm_sharded(sev, q_mm, x)
+        k = cpmm_sharded(sev, k_mm, x)
+        v = cpmm_sharded(sev, v_mm, sev.mod_drop_to(x, head.n_v + 2))
+        del x
+        qkt = ccmm_col_to_diag_sharded(sev, q, k, head.num_x, head.num_row,
+                                       head.col_chunk)
+        del q, k
+        sm = softmax_diag_sharded(sev, head.encoder, qkt, head.masks,
+                                  max_val=MAX_VAL, refresh=lambda ct: ct,
+                                  inv_iters=head.inv_iters, eps=EPS,
+                                  out_n_q=head.n_v, exp_r=head.exp_r)
+        del qkt
+        return ccmm_diag_to_col_sharded(sev, sm, v, head.num_x,
+                                        head.num_row)
+
+    return ShardedHead(fn, head.fn, head, sev, mesh, mode)
+
+
+def build_sharded_head(logN: int, n_data_levels: int, num_x: int,
+                       num_row: int, d_model: int, head_dim: int, exp_r: int,
+                       inv_iters: int, input_count: int, mesh: Mesh,
+                       mode: str, seed: int = 11, device="cuda",
+                       weights: dict | None = None,
+                       nominal_input_scale: bool = False) -> ShardedHead:
+    """``__graft_entry__.dryrun_multichip``'s program: ``build_head``'s
+    head (the same keys, weights and input) over ``mesh`` (``shard_head``),
+    beside it unsharded (``plain``).  With ``nominal_input_scale`` and
+    ``_build_head``'s arguments and seed, every residue is the one its
+    jitted sharded program computes."""
+    head = build_head(logN, n_data_levels, num_x, num_row, d_model, head_dim,
+                      exp_r, inv_iters, input_count, seed=seed, device=device,
+                      weights=weights,
+                      nominal_input_scale=nominal_input_scale)
+    return shard_head(head, mesh, mode)

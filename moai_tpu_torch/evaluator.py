@@ -38,6 +38,12 @@ def _close(a: float, b: float, tol=2e-3) -> bool:
     return abs(a - b) <= tol * max(abs(a), abs(b))
 
 
+def _sum_leading(data, q):
+    """Modular sum over the leading axis (canonical int32 residues, summed
+    in int64 and reduced back to int32)."""
+    return data.sum(0).remainder_(q).to(torch.int32)
+
+
 def _require(cond: bool, msg) -> None:
     if not cond:
         raise ValueError(msg)
@@ -495,6 +501,17 @@ class Evaluator:
         c = self._const_vec_residues_mont(values, a.scale, a.n_q)[:, 0]
         return self._with_c0(a, ma.add_mod(a.data[..., 0, :, :], c,
                                            self._q(a.n_q)))
+
+    # -- the leading (batch) axis --------------------------------------------
+    def sum_leading(self, a: Ciphertext) -> Ciphertext:
+        """The sum of a's ciphertexts over its leading axis."""
+        return a.with_data(_sum_leading(a.data, self._q(a.n_q)))
+
+    @staticmethod
+    def expand_like(a: Ciphertext, like: Ciphertext) -> Ciphertext:
+        """One ciphertext ``a`` broadcast over like's leading axis (a
+        view)."""
+        return a.with_data(a.data[None].expand(like.data.shape))
 
     def align(self, a: Ciphertext, b: Ciphertext
               ) -> tuple[Ciphertext, Ciphertext]:

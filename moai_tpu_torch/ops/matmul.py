@@ -92,7 +92,9 @@ class CPMM:
     of the rows J (the input holding only those ciphertexts) gives partial
     sums; their modular sum, passed to ``finish``, is the full product,
     with the same residues (the rescale of a sum is not the sum of
-    rescales, so partial sums meet before ``finish``).
+    rescales, so partial sums meet before ``finish``).  Limbs are
+    independent too: ``product`` over a limb window gives those limbs of
+    the product (``parallel.sharding.cpmm_sharded`` runs both splits).
     """
 
     def __init__(self, ev: Evaluator, encoder: Encoder, W: np.ndarray,
@@ -121,6 +123,10 @@ class CPMM:
             ev.device)
         self.bucket_mul = torch.from_numpy(host_bucket_consts(qs)).to(
             ev.device)
+        # the weight digits and the level's q and R^-1 by device (moved to a
+        # mesh position's device at first use)
+        self._tables = {ev.device: (self.w_digits, self.bucket_mul,
+                                    ev.dev["q"][:n_q], ev.dev["rinv"][:n_q])}
         self.bias = bias
         # the bias plaintext's rounded coefficients [I, N] (host), encoded
         # to residues per call: [I, n_q, N] residues of a wide layer would
@@ -138,25 +144,41 @@ class CPMM:
                            rescale=rescale, cols=cols)
 
     def product(self, x: Ciphertext, rows: slice | None = None,
-                cols: slice | None = None) -> torch.Tensor:
+                cols: slice | None = None,
+                window: tuple | None = None) -> torch.Tensor:
         """sum_j x[j] W[j, i] mod q over the rows ``rows`` of W (x holds
-        just those ciphertexts) and its columns ``cols``: [I, P, n_q, N]."""
-        if x.n_q != self.n_q:
-            raise ValueError(f"CPMM built for n_q={self.n_q}, got {x.n_q}")
-        w = self.w_digits
+        just those ciphertexts) and its columns ``cols``: [I, P, n_q, N].
+        With ``window`` (lo, hi), x holds the level's limbs [lo, hi) only
+        (a limb shard, on any device) and the product is those limbs'."""
+        lo, hi = window or (0, self.n_q)
+        if x.n_q != hi - lo or hi > max(lo, self.n_q):     # may be empty
+            raise ValueError(f"CPMM built for n_q={self.n_q}, got {x.n_q}"
+                             + (f" limbs for the window {window}"
+                                if window else ""))
+        dev = x.data.device
+        if dev not in self._tables:
+            self._tables[dev] = tuple(t.to(dev)
+                                      for t in self._tables[self.ev.device])
+        w, bucket_mul, q, rinv = self._tables[dev]
+        w = w[:, lo:hi]
         if rows is not None:
             w = w[:, :, rows]
         if cols is not None:
             w = w[..., cols]
-        dv = self.ev.dev
-        return mod_matmul(x.data, w, self.bucket_mul, dv["q"][:self.n_q],
-                          dv["rinv"][:self.n_q])
+        return mod_matmul(x.data, w, bucket_mul[:, lo:hi], q[lo:hi],
+                          rinv[lo:hi])
 
     def finish(self, data: torch.Tensor, x_scale: float, rescale: bool = True,
                cols: slice | None = None) -> Ciphertext:
         """Mask, rescale and bias of a product from ``product``."""
-        ev = self.ev
-        ct = Ciphertext(data, x_scale * self.w_scale, True)
+        return self.finish_ct(self.ev, Ciphertext(
+            data, x_scale * self.w_scale, True), rescale, cols)
+
+    def finish_ct(self, ev, ct, rescale: bool = True,
+                  cols: slice | None = None):
+        """``finish`` of the product ciphertext ``ct`` (at x_scale *
+        w_scale) over ``ev``: an Evaluator, or a ShardedEvaluator with
+        ``ct`` sharded, which places the mask and the bias like ``ct``."""
         if self.mask_pt is not None:
             ct = ev.multiply_plain(ct, self.mask_pt)
         if rescale:
@@ -272,9 +294,13 @@ def ccmm_col_to_diag_finish(ev: Evaluator, acc, prod_scale: float,
     return ev.rescale(ev.rescale(out))
 
 
+# rotations of V per hoisted MAC in ccmm_diag_to_col
+DIAG_ROT_CHUNK = 4
+
+
 def ccmm_diag_to_col(ev: Evaluator, x: Ciphertext, v: Ciphertext,
                      num_x: int, num_row: int,
-                     rot_chunk: int = 4) -> Ciphertext:
+                     rot_chunk: int = DIAG_ROT_CHUNK) -> Ciphertext:
     """Diagonal-packed A [num_row cts, diag d slot k = A[k, k+d]] x
     col-packed V [dv cts] -> col-packed A V [dv cts], baby-step/giant-step:
 

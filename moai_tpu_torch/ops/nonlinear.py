@@ -21,7 +21,7 @@ from ..boot.evalmod import _sum_terms, cheb_eval_bsgs
 from ..ciphertext import Ciphertext, Plaintext
 from ..encoder import Encoder
 from ..encrypt import encode_ntt
-from ..evaluator import Evaluator
+from ..evaluator import Evaluator, _sum_leading
 from ..minimax import fit_sign_composite, remez_fit
 
 
@@ -252,12 +252,6 @@ def gelu_sign(ev: Evaluator, x: Ciphertext, breakpoint: float = 3.5,
     return ev.add(*ev.align(t1, t2))
 
 
-def _sum_leading(data, q):
-    """Modular sum over the leading axis (canonical int32 residues, summed
-    in int64 and reduced back to int32)."""
-    return data.sum(0).remainder_(q).to(torch.int32)
-
-
 def layernorm(ev: Evaluator, x: Ciphertext, gamma: np.ndarray,
               beta: np.ndarray, var_domain: tuple[float, float],
               newton_iters: int = 4, gold_iters: int = 2,
@@ -376,7 +370,8 @@ def softmax_exp_sum(ev: Evaluator, encoder: Encoder, x: Ciphertext,
                     exp_r: int = 7, pts=None
                     ) -> tuple[Ciphertext, Ciphertext]:
     """Softmax phase 1: (x - max) -> exp -> mask/sum_scale -> column sum
-    + eps.  Returns (e, s); ``s`` is the single sum ciphertext."""
+    + eps.  Returns (e, s); ``s`` is the single sum ciphertext.  ``ev`` may
+    be a ShardedEvaluator (``parallel.sharding.softmax_diag_sharded``)."""
     R = masks.shape[0]
     if sum_scale is None:
         sum_scale = float(R)
@@ -390,20 +385,18 @@ def softmax_exp_sum(ev: Evaluator, encoder: Encoder, x: Ciphertext,
         raise ValueError(f"mask plaintext at n_q={mask_pt.n_q}, exp output "
                          f"at {e.n_q}")
     e = ev.rescale_pair(ev.multiply_plain(e, mask_pt))
-    s = Ciphertext(_sum_leading(e.data, ev.dev["q"][:e.n_q].reshape(-1, 1)),
-                   e.scale, True)
-    s = ev.add_const(s, eps / sum_scale)
+    s = ev.add_const(ev.sum_leading(e), eps / sum_scale)
     return e, s
 
 
 def softmax_finish(ev: Evaluator, e: Ciphertext, s: Ciphertext,
                    inv_iters: int = 16, out_n_q: int | None = None
                    ) -> Ciphertext:
-    """Softmax phase 2: Goldschmidt inverse of the sum, then exp * inv."""
+    """Softmax phase 2: Goldschmidt inverse of the sum, then exp * inv
+    (over an Evaluator or a ShardedEvaluator, as phase 1)."""
     inv = inverse_goldschmidt(ev, s, inv_iters)
     en, invn = ev.align(e, inv)
-    out = ev.mul_relin_rescale(
-        en, invn.with_data(invn.data[None].expand(en.data.shape)))
+    out = ev.mul_relin_rescale(en, ev.expand_like(invn, en))
     if out_n_q is not None and out.n_q > out_n_q:
         out = ev.mod_drop_to(out, out_n_q)
     return out

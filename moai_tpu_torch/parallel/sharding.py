@@ -19,7 +19,9 @@ In JAX the module only places arrays, and XLA's partitioner (GSPMD)
 partitions the program and inserts the collectives.  PyTorch has no
 partitioner that runs the port's own kernels, so this module also runs
 the sharded programs (``ShardedEvaluator``, ``ShardedBootstrapper``,
-``ccmm_col_to_diag_sharded``) and moves the data itself.  One process
+``cpmm_sharded``, ``ccmm_col_to_diag_sharded``, ``softmax_diag_sharded``,
+``ccmm_diag_to_col_sharded``: the attention head of
+``__graft_entry__.dryrun_multichip``) and moves the data itself.  One process
 drives the whole mesh, as JAX's single controller does: each op is issued
 to every device before anything synchronises (eager launches on distinct
 cards overlap), and the copies between devices are ``Tensor.to(device,
@@ -61,6 +63,9 @@ one copy of the keys.
 ``moved`` counts the bytes handed from one mesh position to another (or
 from and to the device of a sharded or gathered tensor), by kind; a
 virtual mesh copies none of them, but counts what a real one would.
+``copied`` counts, by the same kinds, the bytes of the tensors made for
+them: all of them on a mesh of distinct cards, on a virtual mesh only a
+placement's copies of strided slices (a limb shard of a tensor).
 """
 
 from __future__ import annotations
@@ -71,8 +76,8 @@ import torch
 
 from .. import mod_arith as ma
 from ..boot.bootstrap import Bootstrapper
-from ..ciphertext import Ciphertext
-from ..evaluator import Evaluator, _require
+from ..ciphertext import Ciphertext, Plaintext
+from ..evaluator import Evaluator, _require, _sum_leading
 from ..keys import GaloisKeys
 from ..ntt import intt
 from ..params import resolve_device
@@ -81,17 +86,23 @@ AXES = ("col", "limb")
 
 moved = {"scatter": 0, "gather": 0, "all_gather": 0, "broadcast": 0,
          "reduce": 0}
+copied = dict(moved)
 
 
 def reset_moved() -> None:
     for k in moved:
-        moved[k] = 0
+        moved[k] = copied[k] = 0
 
 
 def _send(t: torch.Tensor, device: torch.device, kind: str) -> torch.Tensor:
-    """t on ``device``, its bytes counted under ``kind``."""
-    moved[kind] += t.numel() * t.element_size()
-    return t.to(device, non_blocking=t.is_cuda and device.type == "cuda")
+    """t on ``device``, its bytes counted under ``kind`` in ``moved``, and
+    in ``copied`` where a new tensor was made for it."""
+    n = t.numel() * t.element_size()
+    moved[kind] += n
+    out = t.to(device, non_blocking=t.is_cuda and device.type == "cuda")
+    if out is not t:
+        copied[kind] += n
+    return out
 
 
 class Mesh:
@@ -201,7 +212,9 @@ def replicated(mesh: Mesh) -> Sharding:
 
 
 def _split(n: int, k: int) -> list | None:
-    """The even split of [0, n) in k ranges, or None when not split."""
+    """The even split of [0, n) in k ranges, which k must divide, or None
+    when not split."""
+    _require(n % k == 0, f"an axis of {n} does not split {k} ways")
     return None if k == 1 else [(r * (n // k), (r + 1) * (n // k))
                                 for r in range(k)]
 
@@ -212,28 +225,34 @@ class ShardedCiphertext:
     that position's device.  ``cols``: each col index's range of the batch
     axis, None where the batch is not split (every row holds all of it);
     ``limbs``: each limb index's range of the limb axis (ragged inside a
-    program, possibly empty), None where the limbs are not split."""
+    program, possibly empty), None where the limbs are not split.  Inside
+    a sharded program a value may live on some rows only (a sum over col
+    onto one row, one row's rotations): its shards are those rows'."""
     mesh: Mesh
     shards: dict
     cols: list | None
     limbs: list | None
 
     @property
+    def _any(self) -> Ciphertext:
+        return next(iter(self.shards.values()))
+
+    @property
     def scale(self) -> float:
-        return self.shards[(0, 0)].scale
+        return self._any.scale
 
     @property
     def is_ntt(self) -> bool:
-        return self.shards[(0, 0)].is_ntt
+        return self._any.is_ntt
 
     @property
     def n_polys(self) -> int:
-        return self.shards[(0, 0)].n_polys
+        return self._any.n_polys
 
     @property
     def n_q(self) -> int:
         if self.limbs is None:
-            return self.shards[(0, 0)].n_q
+            return self._any.n_q
         return sum(hi - lo for lo, hi in self.limbs)
 
     def indices(self, pos) -> tuple:
@@ -254,13 +273,22 @@ def shard_ciphertext(ct: Ciphertext, mesh: Mesh, limb: bool = False
     shape = tuple(ct.data.shape)
     batched = len(shape) > 3
     idx = ct_sharding(mesh, batched, limb).devices_indices_map(shape)
-    shards = {pos: Ciphertext(_send(ct.data[idx[pos]], mesh[pos],
-                                    "scatter").contiguous(),
+    shards = {pos: Ciphertext(_place(ct.data[idx[pos]], mesh[pos]),
                               ct.scale, ct.is_ntt)
               for pos in mesh.positions()}
     cols = _split(shape[0], mesh.shape["col"]) if batched else None
     limbs = _split(shape[-2], mesh.shape["limb"]) if limb else None
     return ShardedCiphertext(mesh, shards, cols, limbs)
+
+
+def _place(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A slice t of a tensor on ``device``, contiguous: sent as "scatter",
+    its copy there counted in ``copied``."""
+    out = _send(t, device, "scatter")
+    if not out.is_contiguous():
+        copied["scatter"] += out.numel() * out.element_size()
+        out = out.contiguous()
+    return out
 
 
 def _limb_range(sct: ShardedCiphertext, pos) -> tuple:
@@ -297,7 +325,8 @@ class ShardedEvaluator:
     collectives (the module docstring), out of the evaluator's own pieces
     (``_dyadic``, ``_square``, ``_mul_int``, ``_const_residues_mont``,
     ``_ks_extend``, ``_targets``, ``_mod_down_q``, ``_rescale_top``,
-    ``_rescale_rest``).  The ops composed of others (``rotate``,
+    ``_rescale_rest``).  A plaintext operand is placed like the
+    ciphertext (``_plain``).  The ops composed of others (``rotate``,
     ``rescale_pair``, ``match_scale`` and the rest below) are the
     evaluator's own code, run over these."""
 
@@ -450,6 +479,45 @@ class ShardedEvaluator:
         return self._each(lambda p, x: x.with_data(Evaluator._mul_int(
             x.data, n, self._qr(p, a)[0])), a)
 
+    def negate(self, a: ShardedCiphertext) -> ShardedCiphertext:
+        if a.limbs is None:
+            return self._each(lambda p, x: self.ev(p).negate(x), a)
+        return self._each(lambda p, x: x.with_data(ma.neg_mod(
+            x.data, self._qr(p, a)[0])), a)
+
+    def _plain(self, pt: Plaintext, a: ShardedCiphertext, pos) -> Plaintext:
+        """pt placed like a's shard at pos, on pos's device: a batch axis
+        (the CPMM bias, the softmax masks) cut by a's cols, the residues cut
+        to the shard's limb range."""
+        d = pt.data
+        if d.dim() > 2 and a.cols is not None:
+            d = d[slice(*a.cols[pos[0]])]
+        if a.limbs is not None:
+            d = d[..., slice(*a.limbs[pos[1]]), :]
+        return Plaintext(_send(d, self.mesh[pos], "scatter"), pt.scale,
+                         pt.is_ntt)
+
+    def add_plain(self, a: ShardedCiphertext, pt: Plaintext
+                  ) -> ShardedCiphertext:
+        if a.limbs is None:
+            return self._each(lambda p, x: self.ev(p).add_plain(
+                x, self._plain(pt, a, p)), a)
+        self.base._check_add("add_plain", a, pt)
+        return self._each(lambda p, x: Evaluator._with_c0(x, ma.add_mod(
+            x.data[..., 0, :, :], self._plain(pt, a, p).data,
+            self._qr(p, a)[0])), a)
+
+    def multiply_plain(self, a: ShardedCiphertext, pt: Plaintext
+                       ) -> ShardedCiphertext:
+        if a.limbs is None:
+            return self._each(lambda p, x: self.ev(p).multiply_plain(
+                x, self._plain(pt, a, p)), a)
+        _require(a.n_q == pt.n_q,
+                 f"multiply_plain: levels {a.n_q} vs {pt.n_q}")
+        return self._each(lambda p, x: Ciphertext(ma.mont_mul(
+            x.data, self._plain(pt, a, p).data.unsqueeze(-3),
+            *self._qr(p, a)), x.scale * pt.scale, x.is_ntt), a)
+
     def _const(self, p, a: ShardedCiphertext, value: float, scale: float):
         """``Evaluator._const_residues_mont`` of p's limbs."""
         lo, hi = a.limbs[p[1]]
@@ -473,6 +541,28 @@ class ShardedEvaluator:
         return self._each(lambda p, x: Ciphertext(ma.mont_mul(
             x.data, self._const(p, a, value, cs),
             *self._qr(p, a)), x.scale * cs, x.is_ntt), a)
+
+    # -- the leading (batch) axis ------------------------------------------
+    def sum_leading(self, a: ShardedCiphertext) -> ShardedCiphertext:
+        """``Evaluator.sum_leading``: each shard's sum over its part of the
+        leading axis; where a's batch is split over col, those partials
+        summed over col onto row 0 (GSPMD's psum, its result on one
+        row)."""
+        s = ShardedCiphertext(self.mesh, {p: x.with_data(_sum_leading(
+            x.data, self._qr(p, a)[0])) for p, x in a.shards.items()}, None,
+            a.limbs)
+        return s if a.cols is None else _reduce_col(self, s)
+
+    def expand_like(self, a: ShardedCiphertext, like: ShardedCiphertext
+                    ) -> ShardedCiphertext:
+        """``Evaluator.expand_like`` at each position of ``like``: a, one
+        ciphertext held there (replicated over col), broadcast over like's
+        shard of the leading axis (local)."""
+        _require(a.limbs == like.limbs and a.cols is None,
+                 "expand_like: one ciphertext placed like the batch's limbs")
+        return ShardedCiphertext(self.mesh, {
+            p: Evaluator.expand_like(a.shards[p], y)
+            for p, y in like.shards.items()}, like.cols, like.limbs)
 
     def with_scale(self, a: ShardedCiphertext, scale: float, *,
                    reason: str) -> ShardedCiphertext:
@@ -787,6 +877,199 @@ class ShardedBootstrapper:
         return refresh
 
 
+def _row(sct: ShardedCiphertext, i: int) -> ShardedCiphertext:
+    """Row i of sct alone: its shards there (one row splits no batch)."""
+    return ShardedCiphertext(sct.mesh, {p: x for p, x in sct.shards.items()
+                                        if p[0] == i}, None, sct.limbs)
+
+
+def _reduce_col(sev: ShardedEvaluator, a: ShardedCiphertext, to: int = 0,
+                scatter: bool = False) -> ShardedCiphertext:
+    """a's shards, one partial of a contraction per row that holds them,
+    summed over col with ``add_mod`` in mesh order: onto row ``to``
+    (GSPMD's psum, its result on one row), or with ``scatter`` each row
+    receiving the sum of its even range of the batch (GSPMD's
+    reduce-scatter: the psum of a contraction whose output is split over
+    col)."""
+    mesh = sev.mesh
+    if scatter:
+        cols = _split(a._any.data.shape[0], mesh.shape["col"])
+        if cols is None:
+            return a
+        targets = dict(enumerate(cols))
+    else:
+        cols, targets = None, {to: (None, None)}
+    shards = {}
+    for r, (lo, hi) in targets.items():
+        for j in range(mesh.shape["limb"]):
+            t = None
+            for i in _rows(a):
+                d = a.shards[(i, j)].data[lo:hi]
+                if i != r:
+                    d = _send(d, mesh[(r, j)], "reduce")
+                t = d if t is None else ma.add_mod(t, d,
+                                                   sev._qr((r, j), a)[0])
+            shards[(r, j)] = Ciphertext(t, a.scale, a.is_ntt)
+    return ShardedCiphertext(mesh, shards, cols, a.limbs)
+
+
+def _replicate(sev: ShardedEvaluator, a: ShardedCiphertext
+               ) -> ShardedCiphertext:
+    """a, held on one row, on every row (a broadcast over col)."""
+    (src,) = _rows(a)
+    return ShardedCiphertext(sev.mesh, {
+        (i, j): a.shards[(src, j)] if i == src else a.shards[(src, j)]
+        .with_data(_send(a.shards[(src, j)].data, sev.mesh[(i, j)],
+                         "broadcast")) for i, j in sev.mesh.positions()},
+        None, a.limbs)
+
+
+def _gather_cols(sev: ShardedEvaluator, a: ShardedCiphertext
+                 ) -> ShardedCiphertext:
+    """a's batch, split over col, whole on every row (an all-gather over
+    col)."""
+    if a.cols is None:
+        return a
+    mesh = sev.mesh
+    return ShardedCiphertext(mesh, {(r, j): a.shards[(r, j)].with_data(
+        torch.cat([a.shards[(i, j)].data if i == r else _send(
+            a.shards[(i, j)].data, mesh[(r, j)], "all_gather")
+            for i in range(mesh.shape["col"])]))
+        for r, j in mesh.positions()}, None, a.limbs)
+
+
+def _split_cols(sev: ShardedEvaluator, a: ShardedCiphertext
+                ) -> ShardedCiphertext:
+    """a's batch, whole on every row, split over col: each row keeps its
+    even range (a local slice, nothing moved)."""
+    if a.cols is not None:
+        return a
+    cols = _split(a._any.data.shape[0], sev.mesh.shape["col"])
+    if cols is None:
+        return a
+    return ShardedCiphertext(sev.mesh, {
+        p: x.with_data(x.data[slice(*cols[p[0]])])
+        for p, x in a.shards.items()}, cols, a.limbs)
+
+
+def cpmm_sharded(sev: ShardedEvaluator, mm, x: ShardedCiphertext
+                 ) -> ShardedCiphertext:
+    """``ops.matmul.CPMM.__call__`` over the mesh: x's batch (the rows J of
+    W) split over col, its limbs over limb or not.  Each position takes
+    ``CPMM.product`` over its rows of W and its limb window; the partials
+    are summed over col, each row receiving its even range of the output
+    columns I (GSPMD's reduce-scatter: the psum of the contraction over
+    the split col axis, into the output's col split); then ``CPMM.
+    finish_ct`` on each shard: the mask, the two rescales with their limb
+    broadcast and the bias land after the sum (a rescale of a sum is not
+    the sum of rescales).  The sums are exact: the residues are the
+    unsharded ones."""
+    _require(x.n_q == mm.n_q, f"CPMM built for n_q={mm.n_q}, got {x.n_q}")
+    _require(x.cols is not None or sev.mesh.shape["col"] == 1,
+             "cpmm_sharded: x's batch is to be split over col")
+    out = _reduce_col(sev, ShardedCiphertext(sev.mesh, {p: Ciphertext(
+        mm.product(xs, rows=None if x.cols is None else slice(*x.cols[p[0]]),
+                   window=_limb_range(x, p)), x.scale * mm.w_scale, True)
+        for p, xs in x.shards.items()}, None, x.limbs), scatter=True)
+    return mm.finish_ct(sev, out)
+
+
+def softmax_diag_sharded(sev: ShardedEvaluator, encoder,
+                         x: ShardedCiphertext, masks, max_val: float,
+                         refresh, inv_iters: int = 16, eps: float = 1e-5,
+                         out_n_q: int | None = None, exp_r: int = 7
+                         ) -> ShardedCiphertext:
+    """``ops.nonlinear.softmax_diag`` over the mesh: ``softmax_exp_sum``
+    and ``softmax_finish`` run over ``sev``.  x's diagonals are split over
+    col (a replicated x, as ``ccmm_col_to_diag_sharded`` returns it, is
+    sliced locally); the masks' plaintexts are placed like them.  The
+    shift, the exp and the mask run per shard; the sum over the diagonals
+    (``ShardedEvaluator.sum_leading``) is each shard's partial, summed over
+    col onto row 0 (GSPMD's psum), where it takes ``eps`` and ``refresh``
+    (ShardedCiphertext -> ShardedCiphertext, called once); the sum is then
+    broadcast over col and every row takes its Goldschmidt inverse
+    (replicated over col, as GSPMD places it, its limbs split where x's
+    are), and multiplies it into its own diagonals."""
+    from ..ops.nonlinear import softmax_exp_sum, softmax_finish
+    e, s = softmax_exp_sum(sev, encoder, _split_cols(sev, x), masks, max_val,
+                           eps=eps, exp_r=exp_r)
+    return softmax_finish(sev, e, _replicate(sev, refresh(s)),
+                          inv_iters=inv_iters, out_n_q=out_n_q)
+
+
+def ccmm_diag_to_col_sharded(sev: ShardedEvaluator, x: ShardedCiphertext,
+                             v: ShardedCiphertext, num_x: int, num_row: int
+                             ) -> ShardedCiphertext:
+    """``ops.matmul.ccmm_diag_to_col`` over the mesh: the diagonals of A
+    split over col (a replicated A is sliced locally), V whole on every
+    row (a col-split V is all-gathered).  Each row rotates V by the baby
+    steps its own diagonals use (hoisted) and forms, for every BSGS group
+    its diagonals meet, the group's 3-poly partial product over them,
+    pre-rotated by the group's global -g*bi*num_x.  A group cut between
+    rows has its partials summed over col onto the first row holding it
+    (relinearization is not linear in the residues: the partials meet
+    before it); that row relinearizes the group and giant-rotates it.  The
+    rows' sums are summed over col, each row receiving its even range of
+    V's columns (GSPMD's reduce-scatter, into the output's P("col", None,
+    "limb", None)), and every shard takes the two rescales.  The residues
+    are the unsharded ones."""
+    from ..ops.matmul import DIAG_ROT_CHUNK, _bsgs_split, _dyadic_sum
+    m, mesh = num_row, sev.mesh
+    x, v = _split_cols(sev, x), _gather_cols(sev, v)
+    spans = x.cols or [(0, x._any.data.shape[0])]
+    _require(spans[-1][1] == m, f"{spans[-1][1]} diagonals for num_row={m}")
+    if x.n_q != v.n_q:
+        raise ValueError(f"ccmm_diag_to_col level mismatch: A at n_q={x.n_q}"
+                         f", V at n_q={v.n_q}")
+    g, _ = _bsgs_split(m)
+    prod_scale = x.scale * v.scale
+    parts, totals = {}, {}            # group -> {row: partial}; row -> sum
+
+    def close(bi, held):
+        """Relinearize and giant-rotate group bi on the first row holding
+        it, its partials summed there, into that row's sum."""
+        own = min(held)
+        grp = held[own] if len(held) == 1 else _reduce_col(
+            sev, ShardedCiphertext(mesh, {p: y for c in held.values()
+                                          for p, y in c.shards.items()},
+                                   None, x.limbs), to=own)
+        part = sev.relinearize(grp)
+        if bi:
+            part = sev.rotate(part, g * bi * num_x)       # giant step
+        totals[own] = part if own not in totals else \
+            sev.add(totals[own], part)
+
+    for i, (lo, hi) in enumerate(spans):
+        xi, vi = _row(x, i), _row(v, i)
+        steps = sorted({d % g for d in range(lo, hi)} - {0})
+        vr = {0: vi}
+        if steps:
+            hv = sev.rotate_hoisted(vi, [s * num_x for s in steps],
+                                    chunk=DIAG_ROT_CHUNK)
+            for k, s in enumerate(steps):
+                vr[s] = sev.map_data(lambda d, k=k: d[k], hv)
+            del hv
+        for bi in range(lo // g, -(-hi // g)):
+            glo, ghi = max(lo, bi * g), min(hi, (bi + 1) * g)
+            grp = sev.map_data(lambda d: d[glo - lo:ghi - lo], xi)
+            if bi:                    # the pre-rotation of global group bi
+                grp = sev.rotate(grp, -g * bi * num_x)
+
+            def f(p, gx, *vs):
+                vb = torch.stack([y.data for y in vs])
+                return Ciphertext(_dyadic_sum(
+                    gx.data[:, None, 0], gx.data[:, None, 1], vb[:, :, 0],
+                    vb[:, :, 1], 0, *sev._qr(p, xi)), prod_scale, True)
+            parts.setdefault(bi, {})[i] = sev._each(
+                f, grp, *[vr[s] for s in range(glo - bi * g, ghi - bi * g)])
+        for bi in [bi for bi in parts if min((bi + 1) * g, m) <= hi]:
+            close(bi, parts.pop(bi))
+    out = _reduce_col(sev, ShardedCiphertext(mesh, {
+        p: y for t in totals.values() for p, y in t.shards.items()}, None,
+        x.limbs), scatter=True)
+    return sev.rescale(sev.rescale(out))
+
+
 def ccmm_col_to_diag_sharded(sev: ShardedEvaluator, x: ShardedCiphertext,
                              w: ShardedCiphertext, num_x: int, num_row: int,
                              col_chunk: int | None = None
@@ -794,52 +1077,50 @@ def ccmm_col_to_diag_sharded(sev: ShardedEvaluator, x: ShardedCiphertext,
     """``ops.matmul.ccmm_col_to_diag`` over X and W sharded on col, on limb
     or on both: each position's partial products over its columns,
     ``col_chunk`` at a time (the double BSGS's hoisted rotations and
-    ``ccmm_col_products``), summed over the col axis onto row 0 with
-    ``add_mod`` in mesh order (GSPMD's psum), finished there
+    ``ccmm_col_products``, each position's folded into its partial before
+    the next position's is made), summed over the col axis onto row 0
+    with ``add_mod`` in mesh order (GSPMD's psum), finished there
     (relinearization, the giant output rotations, the rescale, as
-    ``ccmm_col_to_diag_finish``) and replicated to every row.  The sums
-    are exact, so the residues are the unsharded ones."""
+    ``ccmm_col_to_diag_finish``) and replicated to every row.  Mesh rows
+    that share a device (a virtual mesh's) hold their rotated operands at
+    once, so each takes ``col_chunk`` over their number: the device holds
+    the unsharded run's.  The sums are exact, so the residues are the
+    unsharded ones."""
     from ..ops.matmul import (CCMM_ROT_CHUNK, _bsgs_split,
                               ccmm_col_products, ccmm_col_rotations)
     sev._same(x, w)
     mesh = sev.mesh
     baby, giant = ccmm_col_rotations(num_x, num_row)
-
-    def partial(xc, wc):
+    C = x._any.data.shape[0]
+    share = max(sum(d in row for row in mesh.devices)
+                for d in mesh.distinct())
+    chunk = max(1, col_chunk // share) if col_chunk else C
+    acc = {}                      # position -> its partial [b, g, 3, n, N]
+    for lo in range(0, C, chunk):
+        xc, wc = [sev.map_data(lambda d: d[lo:lo + chunk], c) for c in (x, w)]
         wr = sev.rotate_hoisted(wc, baby, CCMM_ROT_CHUNK) if baby else None
         xr = sev.rotate_hoisted(xc, giant, CCMM_ROT_CHUNK) if giant else None
-
-        def f(p, xs, ws):
-            wb, xg = ws.data[None], xs.data[None]
+        for p, xs in xc.shards.items():
+            wb, xg = wc.shards[p].data[None], xs.data[None]
             if wr is not None:
                 wb = torch.cat([wb, wr.shards[p].data])
             if xr is not None:
                 xg = torch.cat([xg, xr.shards[p].data])
-            return Ciphertext(ccmm_col_products(xg, wb, *sev._qr(p, xc)),
-                              xs.scale * ws.scale, True)
-        return sev._each(f, xc, wc)
-
-    C = x.shards[(0, 0)].data.shape[0]
-    chunk = col_chunk or C
-    acc = None
-    for lo in range(0, C, chunk):
-        part = partial(*[sev.map_data(lambda d: d[lo:lo + chunk], c)
-                         for c in (x, w)])
-        acc = part if acc is None else sev.add(acc, part)
+            q, rinv = sev._qr(p, xc)
+            part = ccmm_col_products(xg, wb, q, rinv)
+            del wb, xg
+            acc[p] = part if p not in acc else ma.add_mod(acc[p], part, q)
+            del part
+        del wr, xr
+    acc = ShardedCiphertext(mesh, {p: Ciphertext(t, x.scale * w.scale, True)
+                                   for p, t in acc.items()}, x.cols, x.limbs)
     # the sum over the col axis (over distinct column shards only), onto
     # row 0
-    rows = range(mesh.shape["col"]) if x.cols is not None else [0]
-    total = {}
-    for j in range(mesh.shape["limb"]):
-        t = acc.shards[(0, j)]
-        for i in rows[1:]:
-            t = t.with_data(ma.add_mod(t.data, _send(
-                acc.shards[(i, j)].data, mesh[(0, j)], "reduce"),
-                sev._qr((0, j), acc)[0]))
-        total[(0, j)] = t
+    total = _reduce_col(sev, acc if x.cols is not None else _row(acc, 0))
     del acc
     g, b = _bsgs_split(num_row)
-    rel = sev.relinearize(ShardedCiphertext(mesh, total, None, x.limbs))
+    rel = sev.relinearize(total)
+    del total
     diags = []
     for bi in range(b):
         ng = min(g, num_row - bi * g)
@@ -847,7 +1128,4 @@ def ccmm_col_to_diag_sharded(sev: ShardedEvaluator, x: ShardedCiphertext,
         diags.append(sev.rotate(grp, g * bi * num_x) if bi else grp)
     out = sev.rescale(sev.rescale(sev.map_data(
         lambda *ds: torch.cat(ds), *diags)))
-    return ShardedCiphertext(mesh, {
-        (i, j): out.shards[(0, j)] if i == 0 else out.shards[(0, j)].with_data(
-            _send(out.shards[(0, j)].data, mesh[(i, j)], "broadcast"))
-        for i, j in mesh.positions()}, None, out.limbs)
+    return _replicate(sev, out)

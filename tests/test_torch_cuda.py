@@ -7,7 +7,9 @@ two-layer model resumed from its layer-0 checkpoint against the same on
 the CPU, and the sharded programs (parallel/sharding.py: the evaluator
 step over limb shards, the column-sharded CCMM and refresh) against the
 same programs unsharded on one card, over a virtual mesh on one card and
-over a mesh of real cards where the host has more than one.
+over a mesh of real cards where the host has more than one, and the
+sharded attention head (entry.build_sharded_head) on a virtual (2, 2) mesh
+against the unsharded head.
 
 This file imports neither JAX nor moai_tpu, so it runs on a GPU host
 without them (tests/conftest.py imports JAX, hence ``--noconftest``):
@@ -27,7 +29,8 @@ from moai_tpu_torch import mod_arith as ma
 from moai_tpu_torch.encoder import Encoder
 from moai_tpu_torch.encrypt import Encryptor
 from moai_tpu_torch.entry import (build_bootstrap, build_head, build_model,
-                                  build_sharded_ccmm, build_sharded_step)
+                                  build_sharded_ccmm, build_sharded_head,
+                                  build_sharded_step)
 from moai_tpu_torch.keys import KeyGenerator
 from moai_tpu_torch.models.bert import BertDims, DepthPlan
 from moai_tpu_torch.ntt import ntt, intt, ntt_plain, intt_plain
@@ -504,3 +507,22 @@ def test_sharded_programs_on_real_cards(card):
         pytest.skip(f"a mesh of real cards needs two; this host has {n}")
     _sharded_programs_equal_unsharded(
         [torch.device("cuda", i) for i in range(min(n, 4))])
+
+
+def test_sharded_head_on_a_virtual_mesh(card):
+    """dryrun_multichip's head at logN 9 on a (2, 2) mesh of cuda:0, the
+    input at P("col", None, "limb", None): torch.equal to the unsharded
+    head on the card, launching every kernel that the unsharded head
+    launches."""
+    S = build_sharded_head(9, 12, 32, 8, 8, 8, 2, 2, 3,
+                           make_mesh(4, 2, [card] * 4), "limb", device=card)
+    limb_cuda.reset_launches()
+    ntt_cuda.reset_launches()
+    want = S.plain(S.head.x_data)
+    plain = {**limb_cuda.launches, **ntt_cuda.launches}
+    limb_cuda.reset_launches()
+    ntt_cuda.reset_launches()
+    got = gather(S.fn(S.head.x_data), card)
+    counts = {**limb_cuda.launches, **ntt_cuda.launches}
+    assert all(counts[k] > 0 for k, v in plain.items() if v > 0)
+    assert got.scale == want.scale and torch.equal(got.data, want.data)

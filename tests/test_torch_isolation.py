@@ -44,7 +44,8 @@ def test_every_module_imports_without_jax():
 
 
 @pytest.mark.parametrize("entry", ["Context", "KeyGenerator", "Encryptor",
-                                   "Evaluator", "build_head", "build_layer",
+                                   "Evaluator", "build_head",
+                                   "build_sharded_head", "build_layer",
                                    "build_model", "serial.load_ciphertext",
                                    "convert.ciphertext"])
 def test_entry_points_default_to_cuda(entry):
@@ -56,8 +57,10 @@ def test_entry_points_default_to_cuda(entry):
     from moai_tpu_torch.evaluator import Evaluator
     from moai_tpu_torch import convert, serial
     from moai_tpu_torch.ciphertext import Ciphertext
-    from moai_tpu_torch.entry import build_head, build_layer, build_model
+    from moai_tpu_torch.entry import (build_head, build_layer, build_model,
+                                      build_sharded_head)
     from moai_tpu_torch.models.bert import BertDims, DepthPlan
+    from moai_tpu_torch.parallel.sharding import make_mesh
     ctx = Context(_test_config(), device="cpu")
     calls = {
         "Context": lambda: Context(_test_config()),
@@ -65,6 +68,9 @@ def test_entry_points_default_to_cuda(entry):
         "Encryptor": lambda: Encryptor(ctx, None, None, None),
         "Evaluator": lambda: Evaluator(ctx),
         "build_head": lambda: build_head(9, 12, 32, 8, 8, 8, 2, 2, 3),
+        "build_sharded_head": lambda: build_sharded_head(
+            9, 12, 32, 8, 8, 8, 2, 2, 3, make_mesh(4, 2, ["cpu"] * 4),
+            "limb"),
         "build_layer": lambda: build_layer(
             9, 10, BertDims(32, 8, 8, 2, 4, 16), DepthPlan(2, 2, 1, 0, 8), 3),
         "build_model": lambda: build_model(
