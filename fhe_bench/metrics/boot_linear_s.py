@@ -1,0 +1,7 @@
+"""boot_linear_s: seconds per ciphertext in the bootstrap's CoeffToSlot and SlotToCoeff stages, from
+synchronised Bootstrapper.on_stage spans over one pass."""
+
+
+def read(rec: dict) -> float | None:
+    s = rec.get("spans", {}).get("boot_linear_s")
+    return None if s is None else s / rec["items"]
