@@ -367,8 +367,8 @@ def launch_counts() -> dict:
 
 
 def launch_shapes() -> dict:
-    """A copy of limb_cuda.shapes: base_conv's and ks_mac's launches by
-    launch shape since the counts were last set to 0."""
+    """A copy of limb_cuda.shapes: each limb kernel's launches by launch
+    shape since the counts were last set to 0."""
     from moai_tpu_torch import limb_cuda
     return {k: dict(v) for k, v in limb_cuda.shapes.items()}
 
@@ -983,8 +983,9 @@ def sharded_vs_unsharded(name: str, mesh, unsharded, sharded, shapes: dict,
     secs = time.perf_counter() - t0
     launches = launch_counts()
     for kind, counts in launch_shapes().items():
+        acc = shapes.setdefault(kind, {})
         for shape, n in counts.items():
-            shapes[kind][shape] = shapes[kind].get(shape, 0) + n
+            acc[shape] = acc.get(shape, 0) + n
     peak = {str(d): torch.cuda.max_memory_allocated(d) / gib
             for d in mesh.distinct()}
     rec = {"program": name, "mesh": [mesh.shape["col"], mesh.shape["limb"]],

@@ -37,6 +37,7 @@ from ..ciphertext import Ciphertext
 from ..encoder import Encoder
 from ..evaluator import Evaluator
 from ..ntt import ntt, intt
+from ..utils import debug
 from .linear import (apply_diagonals, encode_diagonals, matrix_diagonals,
                      bsgs_steps, c2s_matrix, s2c_matrix, c2s_apply_levels,
                      s2c_apply_levels, group_apply_levels)
@@ -56,6 +57,7 @@ EVALMOD_DEGREE = 63
 
 
 class Bootstrapper:
+    @debug.spanned("bootstrapper.init")
     def __init__(self, ev: Evaluator, encoder: Encoder,
                  mod_reducer: ModReducer | None = None,
                  m_bound: float = 1.0, n_out: int | None = None,
@@ -268,27 +270,31 @@ class Bootstrapper:
     def __call__(self, ct: Ciphertext) -> Ciphertext:
         ev, ctx = self.ev, self.ctx
         delta_in = ct.scale
-        z = self.modraise(ct)
+        with debug.span("modraise"):
+            z = self.modraise(ct)
         self._stage("ModRaise")
         for i in range(len(self.c2s_levels)):
-            z = self._linear("c2s", i, z)
+            with debug.span(f"coeff_to_slot.{i}"):
+                z = self._linear("c2s", i, z)
             self._stage(f"CoeffToSlot {i}")
-        # reinterpret: slots now hold t = m*Delta_in/q0 + I at scale q0
-        # (coefficients arrive bit-reversed in the factored path; EvalMod
-        # is pointwise and SlotToCoeff consumes the same order, so the
-        # permutation cancels)
-        t = ev.with_scale(z, self.q0 * z.scale / delta_in,
-                          reason="ModRaise: slots hold m*Delta/q0 + I")
-        del z
-        tc = ev.conjugate(t)
-        t_r = ev.add(t, tc)                                    # 2*Re(t)
-        t_i = self.mul_i(ev.sub(tc, t))                        # 2*Im(t)
-        del t, tc
-        y_r = self.mr(ev, t_r, pre_scale=0.5)
-        del t_r
+        with debug.span("evalmod.real"):
+            # reinterpret: slots now hold t = m*Delta_in/q0 + I at scale q0
+            # (coefficients arrive bit-reversed in the factored path;
+            # EvalMod is pointwise and SlotToCoeff consumes the same order,
+            # so the permutation cancels)
+            t = ev.with_scale(z, self.q0 * z.scale / delta_in,
+                              reason="ModRaise: slots hold m*Delta/q0 + I")
+            del z
+            tc = ev.conjugate(t)
+            t_r = ev.add(t, tc)                                # 2*Re(t)
+            t_i = self.mul_i(ev.sub(tc, t))                    # 2*Im(t)
+            del t, tc
+            y_r = self.mr(ev, t_r, pre_scale=0.5)
+            del t_r
         self._stage("EvalMod real")
-        y_i = self.mr(ev, t_i, pre_scale=0.5)
-        del t_i
+        with debug.span("evalmod.imag"):
+            y_i = self.mr(ev, t_i, pre_scale=0.5)
+            del t_i
         self._stage("EvalMod imag")
         w = ev.add(y_r, self.mul_i(y_i))
         del y_r, y_i
@@ -298,7 +304,9 @@ class Bootstrapper:
         out = w
         last = len(self.s2c_levels) - 1
         for i in range(len(self.s2c_levels)):
-            out = self._linear("s2c", i, out, alpha if i == last else None)
+            with debug.span(f"slot_to_coeff.{i}"):
+                out = self._linear("s2c", i, out,
+                                   alpha if i == last else None)
             self._stage(f"SlotToCoeff {i}")
         out = ev.with_scale(out, ctx.scale,
                             reason="SlotToCoeff folded alpha into last LT")
@@ -326,6 +334,7 @@ def make_refresh(bt: Bootstrapper, m_bound: float = 1.0, mesh=None):
         return ShardedBootstrapper(bt, mesh).make_refresh(m_bound)
     ev = bt.ev
 
+    @debug.spanned("refresh")
     def refresh(ct, n_q):
         # Deep squaring chains drift the tracked composite scale; the
         # bootstrap's message precision is |m|*scale/q0, so a sunk scale

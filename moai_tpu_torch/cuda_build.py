@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from .utils import debug
+
 HERE = Path(__file__).resolve().parent
 SOURCES = {"ntt": HERE / "csrc" / "ntt.cu", "limb": HERE / "csrc" / "limb.cu"}
 BUILD_DIR = HERE / "_build"
@@ -42,36 +44,41 @@ def library_path(name: str) -> Path:
 
 def build(names=None) -> dict[str, tuple[Path, str]]:
     """Compile every named source (default: all) whose library is missing,
-    one nvcc process each, started together.  Returns {name: (library,
-    nvcc's messages)}; the messages (registers, shared memory, spills) are
-    empty for a library that was already built."""
+    one nvcc process each, started together, inside a ``cuda_build`` span.
+    Returns {name: (library, nvcc's messages)}; the messages (registers,
+    shared memory, spills) are empty for a library that was already
+    built."""
     names = list(SOURCES) if names is None else list(names)
-    out, running = {}, {}
-    try:
-        for name in names:
-            lib = library_path(name)
-            if lib.exists():
-                out[name] = (lib, "")
-                continue
+    out = {name: (library_path(name), "") for name in names
+           if library_path(name).exists()}
+    missing = [name for name in names if name not in out]
+    if not missing:
+        return out
+    running = {}
+    with debug.span("cuda_build"):
+        try:
             BUILD_DIR.mkdir(exist_ok=True)
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            running[name] = (subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
-                tmp, lib)
-        for name, (proc, tmp, lib) in running.items():
-            _, err = proc.communicate()
-            if proc.returncode:
-                raise RuntimeError(f"nvcc failed on {SOURCES[name].name} "
-                                   f"({proc.returncode}):\n{err}")
-            os.replace(tmp, lib)
-            out[name] = (lib, err)
-    finally:
-        for proc, _, _ in running.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    return out
+            for name in missing:
+                lib = library_path(name)
+                tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+                running[name] = (subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                     str(SOURCES[name])],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True), tmp, lib)
+            for name, (proc, tmp, lib) in running.items():
+                _, err = proc.communicate()
+                if proc.returncode:
+                    raise RuntimeError(f"nvcc failed on {SOURCES[name].name}"
+                                       f" ({proc.returncode}):\n{err}")
+                os.replace(tmp, lib)
+                out[name] = (lib, err)
+        finally:
+            for proc, _, _ in running.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return {name: out[name] for name in names}
 
 
 @functools.cache

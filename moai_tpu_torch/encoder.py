@@ -21,6 +21,7 @@ import copy
 import numpy as np
 
 from .params import Context
+from .utils import debug
 
 
 class Encoder:
@@ -69,6 +70,7 @@ class Encoder:
         return np.real(twisted * self.zeta_pow_inv)
 
     # -- RNS encode/decode ------------------------------------------------
+    @debug.spanned("encode")
     def encode_coeffs(self, vals, scale: float | None = None) -> np.ndarray:
         """Slot values -> rounded integer coefficients [..., N], float64
         (exact integers at any magnitude).  vals: scalar, [slots] or
@@ -83,6 +85,7 @@ class Encoder:
             vals = np.concatenate([vals.astype(np.complex128), pad], axis=-1)
         return np.round(self.slots_to_coeffs(vals) * scale)
 
+    @debug.spanned("encode.residues")
     def residues(self, rounded: np.ndarray, n_q: int) -> np.ndarray:
         """Exact standard residues [..., n_q, N] (uint32) of the
         coefficients from ``encode_coeffs``."""

@@ -60,6 +60,7 @@ from .parallel.sharding import (Mesh, ShardedCiphertext, ShardedEvaluator,
                                 ccmm_diag_to_col_sharded, cpmm_sharded,
                                 shard_ciphertext, softmax_diag_sharded)
 from . import serial
+from .utils import debug
 from .utils.recrypt import Recryptor
 
 MAX_VAL = 2.0           # softmax shift: scores enter exp as x - MAX_VAL
@@ -179,6 +180,7 @@ def build_head(logN: int, n_data_levels: int, num_x: int, num_row: int,
     x_scale = ctx.scale if nominal_input_scale else \
         balanced_input_scale(ctx, exp_r, inv_iters)
 
+    @debug.spanned("head")
     def head_fn(x_data: torch.Tensor) -> Ciphertext:
         x = Ciphertext(x_data, x_scale, True)
         q = q_mm(x)

@@ -25,6 +25,7 @@ import torch
 from . import mod_arith as ma
 from .params import Context, check_device
 from .ntt import ntt
+from .utils import debug
 
 
 def _to_mont_host(res: np.ndarray, primes) -> np.ndarray:
@@ -189,6 +190,7 @@ class KeyGenerator:
         return SecretKey(coeffs=s, s_ntt=coeffs_to_ntt(self.ctx, s, 0, nall))
 
     # -- public key -------------------------------------------------------
+    @debug.spanned("keygen.public")
     def gen_public_key(self) -> PublicKey:
         L = self.ctx.L
         a = self._uniform_ntt(0, L)
@@ -231,6 +233,7 @@ class KeyGenerator:
             keys.append(torch.stack([b, a]).to(dtype))
         return KSwitchKey(data=torch.stack(keys))
 
+    @debug.spanned("keygen.relin")
     def gen_relin_key(self, dtype: torch.dtype = torch.int32) -> KSwitchKey:
         q, rinv = self._q(0, self.ctx.L + self.ctx.K)
         s2 = ma.mont_mul(self.sk.s_ntt, self.sk.s_ntt, q, rinv)
@@ -252,6 +255,7 @@ class KeyGenerator:
     def galois_elt_conjugate(self) -> int:
         return 2 * self.ctx.cfg.N - 1
 
+    @debug.spanned("keygen.galois")
     def gen_galois_keys(self, steps: list[int], conjugate: bool = False,
                         dtype: torch.dtype = torch.int32) -> GaloisKeys:
         """Keys for the exact rotation-step set, held as ``dtype``."""

@@ -24,8 +24,9 @@ The source is built by ``cuda_build`` at first use.  Each wrapper checks
 device, dtype, shape and contiguity and raises on what its kernel does not
 take; it never falls back to the torch ops.  Each launch adds one to
 ``launches``; a call with nothing to compute launches nothing.  Beside it,
-``shapes`` counts the launches of ``base_conv`` and ``ks_mac`` by launch
-shape (``conv_shape``, ``mac_shape``), so a run can name its commonest one.
+``shapes`` counts each kernel's launches by launch shape (``ew_shape``,
+``conv_shape``, ``mac_shape``, and diag_mac's (terms, B, L, N)), so a run
+can name its commonest one and bound each launch.
 The kernels launch on PyTorch's current stream and do not synchronise.
 """
 
@@ -39,7 +40,7 @@ import torch
 from . import cuda_build
 
 launches = {"limb_ew": 0, "base_conv": 0, "ks_mac": 0, "diag_mac": 0}
-shapes = {"base_conv": {}, "ks_mac": {}}
+shapes = {"limb_ew": {}, "base_conv": {}, "ks_mac": {}, "diag_mac": {}}
 
 EW_OPS = {"add": 0, "sub": 1, "neg": 2, "mul": 3, "from_mont": 4,
           "sub_mul": 5}
@@ -201,6 +202,25 @@ def ew_layout(ops):
     return shape, sizes, st, rows
 
 
+def ew_shape(op: str, ops, numel: int, sizes, st) -> tuple:
+    """limb_ew's launch shape from its layout (``ew_layout``): (op, output
+    elements, then each operand's distinct elements in a, b, c, q order: a
+    broadcast (stride-0) axis counted once, an int or None none)."""
+    key = [op, numel]
+    for t, s in zip(ops, st):
+        if not isinstance(t, torch.Tensor):
+            key.append(0)
+        elif 0 not in s:
+            key.append(numel)
+        else:
+            n = 1
+            for size, stride in zip(sizes, s):
+                if stride:
+                    n *= size
+            key.append(n)
+    return tuple(key)
+
+
 def limb_ew(op: str, a, b, c, q) -> torch.Tensor:
     """``op`` over the broadcast of a, b, c (each a CUDA int32 tensor, a
     Python int or None) modulo q (a CUDA int32 tensor or a Python int),
@@ -235,7 +255,8 @@ def limb_ew(op: str, a, b, c, q) -> torch.Tensor:
         else:
             o.value = int(t or 0)
         o.stride[:len(s)] = s
-    _launch("limb_ew", args, device)
+    _launch("limb_ew", args, device,
+            ew_shape(op, ops, shape.numel(), sizes, st))
     return out
 
 
@@ -431,5 +452,5 @@ def diag_mac(cts, pts, q) -> torch.Tensor:
         for j, ct in enumerate(cts):
             args.ct[j] = ct.data_ptr()
         args.q, args.qs = _vector(q, L, "q")
-        _launch("diag_mac", args, device)
+        _launch("diag_mac", args, device, (len(cts), B, L, N))
     return out

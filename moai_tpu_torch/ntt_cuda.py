@@ -11,7 +11,8 @@ is asked for.
 the plain transforms of ``ntt.py``.  A call is two device kernels, the two
 passes of the 4-step split N = n1 * n2 (``ntt._split``), which hand each
 other a uint32 scratch the wrapper allocates; each call adds one to
-``launches``.
+``launches``, and one to ``shapes`` under its launch shape (rows, active
+limbs, log N).
 """
 
 from __future__ import annotations
@@ -32,11 +33,14 @@ from .primes import inv_mod
 MIN_LOG_N, MAX_LOG_N = 9, 16
 
 launches = {"ntt_fwd": 0, "ntt_inv": 0}
+shapes = {"ntt_fwd": {}, "ntt_inv": {}}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    for v in shapes.values():
+        v.clear()
 
 
 @functools.cache
@@ -159,6 +163,8 @@ def _launch(name: str, x, tables, limb_slice, table_names):
         if err:
             raise RuntimeError(f"moai_{name} launch failed: CUDA error {err}")
         launches[name] += 1
+        key = (rows, limbs, tables.log_n)
+        shapes[name][key] = shapes[name].get(key, 0) + 1
     return y
 
 

@@ -25,6 +25,7 @@ from ..encoder import Encoder
 from ..encrypt import encode_ntt, rounded_to_ntt
 from ..evaluator import Evaluator
 from ..modmat import mod_matmul, host_weight_digits, host_bucket_consts
+from ..utils import debug
 
 
 def _bsgs_split(m: int) -> tuple[int, int]:
@@ -136,6 +137,7 @@ class CPMM:
         self.encoder = encoder
         self.bias_mask = mask
 
+    @debug.spanned("cpmm")
     def __call__(self, x: Ciphertext, rescale: bool = True,
                  cols: slice | None = None) -> Ciphertext:
         """x: Ciphertext with leading batch axis J.  Output batch axis I
@@ -202,6 +204,7 @@ class CPMM:
                                         ct.n_q), ct.scale)
 
 
+@debug.spanned("ccmm_col_to_diag")
 def ccmm_col_to_diag(ev: Evaluator, x: Ciphertext, w: Ciphertext,
                      num_x: int, num_row: int,
                      col_chunk: int | None = None) -> Ciphertext:
@@ -298,6 +301,7 @@ def ccmm_col_to_diag_finish(ev: Evaluator, acc, prod_scale: float,
 DIAG_ROT_CHUNK = 4
 
 
+@debug.spanned("ccmm_diag_to_col")
 def ccmm_diag_to_col(ev: Evaluator, x: Ciphertext, v: Ciphertext,
                      num_x: int, num_row: int,
                      rot_chunk: int = DIAG_ROT_CHUNK) -> Ciphertext:

@@ -23,6 +23,7 @@ from ..encoder import Encoder
 from ..encrypt import encode_ntt
 from ..evaluator import Evaluator, _sum_leading
 from ..minimax import fit_sign_composite, remez_fit
+from ..utils import debug
 
 
 def encode_plain(ev: Evaluator, encoder: Encoder, vals, scale: float,
@@ -331,6 +332,7 @@ def diag_valid_masks(input_lens, num_x: int, num_row: int, slots: int
     return masks
 
 
+@debug.spanned("softmax.pts")
 def softmax_pts(ev: Evaluator, encoder: Encoder, masks: np.ndarray,
                 max_val: float, in_scale: float, n_q: int, exp_r: int = 7,
                 sum_scale: float | None = None):
@@ -345,6 +347,7 @@ def softmax_pts(ev: Evaluator, encoder: Encoder, masks: np.ndarray,
     return neg_max, mask_pt
 
 
+@debug.spanned("softmax")
 def softmax_diag(ev: Evaluator, encoder: Encoder, x: Ciphertext,
                  masks: np.ndarray, max_val: float,
                  refresh: Callable[[Ciphertext], Ciphertext],

@@ -24,6 +24,7 @@ import torch
 
 from .primes import ntt_primes_near, inv_mod
 from .ntt import NttTables
+from .utils import debug
 
 
 def resolve_device(device) -> torch.device:
@@ -106,6 +107,7 @@ class Context:
     """Precomputed CKKS context: ladder, tables, RNS/keyswitch constants,
     with its tensors on ``device``."""
 
+    @debug.spanned("context")
     def __init__(self, cfg: CKKSConfig, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg

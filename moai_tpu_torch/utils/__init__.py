@@ -1,1 +1,2 @@
-"""Harness-side utilities (never imported by op or model code)."""
+"""Observability (``debug``: op traces, spans, probes) and harness-side
+utilities (``recrypt``, never imported by op or model code)."""

@@ -1,12 +1,25 @@
-"""Observability: per-op level/scale tracing and per-stage wall timers.
+"""Observability: per-op level/scale tracing, spans at the program's layer
+boundaries, and a decrypt probe.
 
-Port of ``moai_tpu/utils/debug.py``, with the same fields and printouts:
+Port of ``moai_tpu/utils/debug.py`` (``OpTrace`` and ``NoiseProbe``, with
+the same fields and printouts), and the port's span recorder:
 
 - ``OpTrace``: attach to ``Evaluator.debug``; it records each hooked
   evaluator op with the result's (n_q, scale).  Torch runs eagerly, so the
   hook fires as each op returns (the JAX package's fires while tracing).
-- ``StageTimer``: wall-clock stage timing for scripts and benches (prints
-  one line per stage and accumulates a dict for JSON output).
+- ``span(name)``: a context manager the program opens at each layer
+  boundary (the head's pass, its matmuls and softmax, the host encoder, the
+  bootstrap's stages, set-up's context and keys, the kernels' build);
+  ``spanned(name)`` puts a whole function inside one.
+  Recording is off by default: ``span`` then returns one shared null
+  context after one global check.  Inside ``tracing()`` each span records
+  its name, its parent, its pass (the outermost open span), its host start
+  and end (``time.perf_counter_ns``) and the port's kernel-launch total
+  (``ntt_cuda.launches`` + ``limb_cuda.launches``) at both ends, into the
+  ``Trace`` that ``tracing`` yields.  A span never synchronises and never
+  touches the device: it says what the host was doing.  The device's side
+  comes from a profiler trace, which ``Trace.epoch_ns`` puts spans beside
+  (kineto's events are Unix-epoch nanoseconds).
 - ``NoiseProbe``: harness-side decrypt hook giving the error of a
   ciphertext against an expected slot vector (it takes a ``Decryptor``, so
   it stays on the side that holds the secret key).
@@ -14,11 +27,12 @@ Port of ``moai_tpu/utils/debug.py``, with the same fields and printouts:
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
 import time
-from typing import Optional
 
 import numpy as np
-import torch
 
 
 class OpTrace:
@@ -51,48 +65,6 @@ class OpTrace:
         return min((n for _, n, _ in self.events), default=0)
 
 
-class StageTimer:
-    """Per-stage timing: ``with timer("softmax"): ...``.
-
-    Blocks on the stage's output (``block``) so device work is attributed
-    to the right stage despite asynchronous launches.
-    """
-
-    def __init__(self, verbose: bool = True):
-        self.stages: dict[str, float] = {}
-        self.verbose = verbose
-        self._name: Optional[str] = None
-        self._t0 = 0.0
-
-    def __call__(self, name: str) -> "StageTimer":
-        self._name = name
-        return self
-
-    def __enter__(self) -> "StageTimer":
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        dt = time.perf_counter() - self._t0
-        name = self._name or f"stage{len(self.stages)}"
-        self.stages[name] = self.stages.get(name, 0.0) + dt
-        if self.verbose:
-            print(f"[moai] {name:<28} {dt:8.3f} s")
-
-    def block(self, ct) -> None:
-        """Wait for a ciphertext's (or a tensor's) device so the stage
-        absorbs its device time; a tensor on the CPU is already done."""
-        data = getattr(ct, "data", ct)
-        if data.device.type == "cuda":
-            torch.cuda.synchronize(data.device)
-
-    def total(self) -> float:
-        return sum(self.stages.values())
-
-    def as_dict(self) -> dict:
-        return {k: round(v, 4) for k, v in self.stages.items()}
-
-
 class NoiseProbe:
     """Harness-side decrypt oracle: max |decrypt(ct) - expected| per probe
     (with no expectation, the largest imaginary part)."""
@@ -113,3 +85,146 @@ class NoiseProbe:
             print(f"[moai] probe {name:<22} max_err={err:.3e} "
                   f"n_q={ct.n_q}")
         return err
+
+
+# -- spans ------------------------------------------------------------------
+
+@dataclasses.dataclass(slots=True)
+class Span:
+    """One recorded span.  ``parent`` and ``pass_id`` index
+    ``Trace.spans`` (-1: no parent; a root is its own pass); times are
+    ``perf_counter_ns`` readings, ``end_ns`` -1 while the span is open;
+    ``launches_*`` the port's launch total at each end."""
+    name: str
+    parent: int
+    pass_id: int
+    start_ns: int
+    end_ns: int
+    launches_start: int
+    launches_end: int
+
+    @property
+    def host_s(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+    @property
+    def launches(self) -> int:
+        return self.launches_end - self.launches_start
+
+
+class Trace:
+    """The spans of one ``tracing()`` block, in the order they opened, and
+    the anchor that puts them on the Unix-epoch clock."""
+
+    ANCHOR_READS = 8
+
+    def __init__(self):
+        from .. import limb_cuda, ntt_cuda
+        self.spans: list[Span] = []
+        self._open: list[int] = []
+        self._counters = (ntt_cuda.launches, limb_cuda.launches)
+        # the tightest of a few (perf_counter_ns, time_ns) pairs read back
+        # to back: the epoch reading against the mid-point of its bracket
+        best = None
+        for _ in range(self.ANCHOR_READS):
+            a = time.perf_counter_ns()
+            e = time.time_ns()
+            b = time.perf_counter_ns()
+            if best is None or b - a < best[0]:
+                best = (b - a, (a + b) // 2, e)
+        _, self.anchor_perf_ns, self.anchor_epoch_ns = best
+
+    def launches(self) -> int:
+        """The port's kernel launches so far (both counters)."""
+        ntt, limb = self._counters
+        return sum(ntt.values()) + sum(limb.values())
+
+    def epoch_ns(self, t: int) -> int:
+        """A ``perf_counter_ns`` reading as Unix-epoch nanoseconds, the
+        clock of torch.profiler's kineto events (``e.start_ns()``)."""
+        return t - self.anchor_perf_ns + self.anchor_epoch_ns
+
+    def path(self, i: int) -> str:
+        """Span ``i``'s name after its ancestors', joined by "/"."""
+        names = []
+        while i >= 0:
+            names.append(self.spans[i].name)
+            i = self.spans[i].parent
+        return "/".join(reversed(names))
+
+    def open(self, name: str) -> int:
+        i = len(self.spans)
+        top = self._open[-1] if self._open else -1
+        root = self._open[0] if self._open else i
+        self.spans.append(Span(name, top, root, time.perf_counter_ns(), -1,
+                               self.launches(), -1))
+        self._open.append(i)
+        return i
+
+    def close(self, i: int) -> None:
+        s = self.spans[i]
+        s.launches_end = self.launches()
+        s.end_ns = time.perf_counter_ns()
+        del self._open[self._open.index(i):]
+
+
+class _NullSpan:
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+class _Recording:
+    __slots__ = ("trace", "name", "index")
+
+    def __init__(self, trace: Trace, name: str):
+        self.trace, self.name = trace, name
+
+    def __enter__(self) -> Span:
+        self.index = self.trace.open(self.name)
+        return self.trace.spans[self.index]
+
+    def __exit__(self, *exc) -> bool:
+        # runs on an exception too, so a span is always closed
+        self.trace.close(self.index)
+        return False
+
+
+NULL_SPAN = _NullSpan()
+_trace: Trace | None = None
+
+
+def span(name: str):
+    """A span around the work of its ``with`` block (see the module's
+    docstring); the shared ``NULL_SPAN`` when nothing records."""
+    if _trace is None:
+        return NULL_SPAN
+    return _Recording(_trace, name)
+
+
+def spanned(name: str):
+    """Decorate a function so that each call runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record every span opened in the block into the ``Trace`` it
+    yields (kept in memory; nothing is written out)."""
+    global _trace
+    outer, trace = _trace, Trace()
+    _trace = trace
+    try:
+        yield trace
+    finally:
+        _trace = outer

@@ -9,7 +9,9 @@ step over limb shards, the column-sharded CCMM and refresh) against the
 same programs unsharded on one card, over a virtual mesh on one card and
 over a mesh of real cards where the host has more than one, and the
 sharded attention head (entry.build_sharded_head) on a virtual (2, 2) mesh
-against the unsharded head.
+against the unsharded head; a span (utils/debug.py) holding its NTT
+kernels on the profiler's clock, and every kernel's launch shapes counting
+its launches.
 
 This file imports neither JAX nor moai_tpu, so it runs on a GPU host
 without them (tests/conftest.py imports JAX, hence ``--noconftest``):
@@ -389,6 +391,55 @@ def test_bootstrap_on_card_equals_cpu(card):
     want = on_cpu.fn(on_cpu.x_data)
     assert got.scale == want.scale
     assert torch.equal(got.data.cpu(), want.data)
+
+
+BOOT9 = CKKSConfig(logN=9, q0_bits=(30.0, 30.0), data_pair_bits=26.0,
+                   n_data_levels=13, dnum=7, special_bits=29.5,
+                   hamming_weight=64)
+
+
+def test_a_span_holds_its_kernels_on_the_profilers_clock(card):
+    """A span around an ntt_fwd call and its synchronise holds both of
+    the call's device kernels in a CUDA-only profile, once the span is
+    put on the epoch clock (1 ms of host sleep inside each end of the
+    span: the clocks agree to better than that)."""
+    import time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from moai_tpu_torch.utils import debug
+    ctx = Context(dataclasses.replace(_test_config(), logN=16), device=card)
+    x = torch.zeros((4, ctx.L + ctx.K, ctx.cfg.N), dtype=torch.int32,
+                    device=card)
+    ntt(x, ctx.dev["ntt"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with debug.tracing() as trace:
+            with debug.span("ntt"):
+                time.sleep(0.001)
+                ntt(x, ctx.dev["ntt"])
+                torch.cuda.synchronize()
+                time.sleep(0.001)
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and "ntt_" in e.name()]
+    assert len(kernels) == 2
+    s = trace.spans[0]
+    lo, hi = trace.epoch_ns(s.start_ns), trace.epoch_ns(s.end_ns)
+    for e in kernels:
+        assert lo < e.start_ns() < e.start_ns() + e.duration_ns() < hi
+
+
+def test_launch_shapes_sum_to_launches(card):
+    """Every kernel's launch shapes count each of its launches once over a
+    bootstrap of two ciphertexts, and each kernel launched."""
+    B = build_bootstrap(BOOT9, 2, seed=101, device=card)
+    ntt_cuda.reset_launches()
+    limb_cuda.reset_launches()
+    B.fn(B.x_data)
+    torch.cuda.synchronize()
+    for mod in (ntt_cuda, limb_cuda):
+        assert set(mod.shapes) == set(mod.launches)
+        for name, n in mod.launches.items():
+            assert n > 0 and sum(mod.shapes[name].values()) == n, name
 
 
 def test_serial_loads_onto_card_equal_cpu(card, tmp_path):

@@ -7,8 +7,6 @@ each op returns, on the JAX package's ciphertext carried over with
 ``convert``.  Both give the same (op, n_q, scale) events and printouts, and
 attaching the hook changes no residue."""
 
-import re
-
 import jax
 import numpy as np
 import pytest
@@ -121,19 +119,3 @@ def test_noise_probe_matches_jax(jax_keys, port):
         assert got == want            # the same decryption, decode, max
         assert got < 1e-6
     assert [n for n, _ in probe.probes] == ["x", "x"]
-
-
-def test_stage_timer_accumulates(capsys):
-    timers = (debug.StageTimer(), jdebug.StageTimer())
-    for timer in timers:
-        for name in ("encode", "layer", "encode", None):
-            with timer(name):
-                if timer is timers[0]:
-                    timer.block(torch.zeros(3))     # on the CPU: no wait
-    lines = capsys.readouterr().out.splitlines()
-    shape = re.compile(r"\[moai\] (encode|layer|stage2) +\d+\.\d{3} s$")
-    assert len(lines) == 8 and all(shape.match(x) for x in lines)
-    t, jt = timers
-    assert list(t.stages) == list(jt.stages) == ["encode", "layer", "stage2"]
-    assert t.total() == pytest.approx(sum(t.stages.values()))
-    assert set(t.as_dict()) == set(t.stages)
