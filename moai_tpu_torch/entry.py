@@ -51,8 +51,8 @@ from .models.bert import (BertDims, BertLayerWeights, DepthPlan,
                           load_reference_layer, plain_bert_layer)
 from .ops.matmul import (CPMM, ccmm_col_to_diag, ccmm_diag_to_col,
                          ccmm_col_steps, ccmm_diag_steps, col_chunk_for)
-from .ops.nonlinear import (softmax_diag, diag_valid_masks, fit_gelu_cheb,
-                            fit_rsqrt_line)
+from .ops.nonlinear import (SoftmaxPts, softmax_diag, diag_valid_masks,
+                            fit_gelu_cheb, fit_rsqrt_line)
 from .ops.packing import batch_input, bias_vec, unpack_batch
 from .params import CKKSConfig, Context, head_config, resolve_device
 from .parallel.sharding import (Mesh, ShardedCiphertext, ShardedEvaluator,
@@ -87,6 +87,7 @@ class Head:
     n_v: int                   # the level of V and of the softmax output
     col_chunk: int             # the QK^T CCMM's column chunk
     x_scale: float             # the input's encoding scale
+    pts: SoftmaxPts            # the softmax's plaintexts, encoded once
 
     def decode(self, out: Ciphertext) -> np.ndarray:
         """Decrypt the head output -> [input_count, num_row, head_dim]."""
@@ -155,6 +156,7 @@ def build_head(logN: int, n_data_levels: int, num_x: int, num_row: int,
     lens = rng.integers(num_row // 2, num_row + 1, size=input_count)
     mask = bias_vec(lens, num_x, num_row, slots)
     masks = diag_valid_masks(lens, num_x, num_row, slots)
+    pts = SoftmaxPts(ev, enc, masks)
 
     n_att = ctx.L
     # level plan (composite levels, no bootstrap): QK CPMM 1, QKT 1,
@@ -190,7 +192,7 @@ def build_head(logN: int, n_data_levels: int, num_x: int, num_row: int,
         del q, k
         sm = softmax_diag(ev, enc, qkt, masks, max_val=MAX_VAL,
                           refresh=lambda ct: ct, inv_iters=inv_iters,
-                          eps=EPS, out_n_q=n_v, exp_r=exp_r)
+                          eps=EPS, out_n_q=n_v, exp_r=exp_r, pts=pts)
         del qkt
         return ccmm_diag_to_col(ev, sm, v, num_x, num_row)
 
@@ -199,7 +201,7 @@ def build_head(logN: int, n_data_levels: int, num_x: int, num_row: int,
     return Head(head_fn, x0.data, ctx,
                 Decryptor(ctx, enc, kg.sk, device=dev), xs, dict(weights),
                 np.asarray(lens), num_x, num_row, exp_r, inv_iters, ev, enc,
-                (q_mm, k_mm, v_mm), masks, n_v, col_chunk, x_scale)
+                (q_mm, k_mm, v_mm), masks, n_v, col_chunk, x_scale, pts)
 
 
 def head_oracle(xs: np.ndarray, weights: dict, lens, exp_r: int,
@@ -742,7 +744,8 @@ def shard_head(head: Head, mesh: Mesh, mode: str) -> ShardedHead:
         sm = softmax_diag_sharded(sev, head.encoder, qkt, head.masks,
                                   max_val=MAX_VAL, refresh=lambda ct: ct,
                                   inv_iters=head.inv_iters, eps=EPS,
-                                  out_n_q=head.n_v, exp_r=head.exp_r)
+                                  out_n_q=head.n_v, exp_r=head.exp_r,
+                                  pts=head.pts)
         del qkt
         return ccmm_diag_to_col_sharded(sev, sm, v, head.num_x,
                                         head.num_row)

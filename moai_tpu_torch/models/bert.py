@@ -32,7 +32,7 @@ from ..encoder import Encoder
 from ..evaluator import Evaluator
 from ..ops.matmul import CPMM, ccmm_col_to_diag, ccmm_diag_to_col, \
     ccmm_col_steps, ccmm_diag_steps, col_chunk_for
-from ..ops.nonlinear import (softmax_exp_sum, softmax_finish, softmax_pts,
+from ..ops.nonlinear import (SoftmaxPts, softmax_exp_sum, softmax_finish,
                              layernorm, gelu, diag_valid_masks)
 from ..ops.packing import bias_vec
 
@@ -158,6 +158,7 @@ class EncryptedAttention:
         mask = bias_vec(input_lens, dims.num_x, dims.num_row, slots)
         self.masks = diag_valid_masks(input_lens, dims.num_x, dims.num_row,
                                       slots)
+        self.softmax_pts = SoftmaxPts(ev, encoder, self.masks)
         sqrt_d = np.sqrt(dims.head_dim)
         # 1/sqrt(d) folded into W_Q and b_Q
         self.q_mm = CPMM(ev, encoder, w.wq / sqrt_d, n_att,
@@ -185,8 +186,8 @@ class EncryptedAttention:
                                    self.k_mm(x, cols=cols), dims.num_x,
                                    dims.num_row, col_chunk=self.col_chunk)
             if pts is None:                  # the same for every head
-                pts = softmax_pts(ev, self.encoder, self.masks, self.max_val,
-                                  qkt.scale, qkt.n_q, exp_r=plan.exp_r)
+                pts = self.softmax_pts(self.max_val, qkt.scale, qkt.n_q,
+                                       exp_r=plan.exp_r)
             e, s = softmax_exp_sum(ev, self.encoder, qkt, self.masks,
                                    self.max_val, exp_r=plan.exp_r, pts=pts)
             del qkt

@@ -20,16 +20,10 @@ from .. import mod_arith as ma
 from ..boot.evalmod import _sum_terms, cheb_eval_bsgs
 from ..ciphertext import Ciphertext, Plaintext
 from ..encoder import Encoder
-from ..encrypt import encode_ntt
+from ..encrypt import rounded_to_ntt
 from ..evaluator import Evaluator, _sum_leading
 from ..minimax import fit_sign_composite, remez_fit
 from ..utils import debug
-
-
-def encode_plain(ev: Evaluator, encoder: Encoder, vals, scale: float,
-                 n_q: int) -> Plaintext:
-    """Host-encode slot values -> NTT+Montgomery Plaintext at (scale, n_q)."""
-    return Plaintext(encode_ntt(ev.ctx, encoder, vals, scale, n_q), scale)
 
 
 def exp_taylor_primes(r: int) -> int:
@@ -332,19 +326,50 @@ def diag_valid_masks(input_lens, num_x: int, num_row: int, slots: int
     return masks
 
 
-@debug.spanned("softmax.pts")
-def softmax_pts(ev: Evaluator, encoder: Encoder, masks: np.ndarray,
-                max_val: float, in_scale: float, n_q: int, exp_r: int = 7,
-                sum_scale: float | None = None):
-    """Encode softmax_diag's two slot-vector plaintexts: -max*masks and
-    masks/sum_scale."""
-    if sum_scale is None:
-        sum_scale = float(masks.shape[0])
-    neg_max = encode_plain(ev, encoder, -max_val * masks, in_scale, n_q)
-    n_e = n_q - exp_taylor_primes(exp_r)      # level of exp output
-    pair = ev.level_pair_scale(n_e)
-    mask_pt = encode_plain(ev, encoder, masks / sum_scale, pair, n_e)
-    return neg_max, mask_pt
+# softmax_diag's plaintexts by where they came from: "encoded" on the host,
+# "reused" from a SoftmaxPts memo's coefficients (two a call)
+softmax_pts_calls = {"encoded": 0, "reused": 0}
+
+
+def reset_softmax_pts_calls() -> None:
+    for k in softmax_pts_calls:
+        softmax_pts_calls[k] = 0
+
+
+class SoftmaxPts:
+    """softmax_diag's two slot-vector plaintexts for one set of masks:
+    -max*masks at the input's scale and masks/sum_scale at the exp output's
+    pair scale.  The rounded host coefficients of both are kept for the
+    last (max_val, in_scale, n_q, exp_r, sum_scale) asked for; every call
+    makes fresh device Plaintexts from them (``rounded_to_ntt``), so the
+    card holds them only while a pass uses them, as ``CPMM._bias``."""
+
+    def __init__(self, ev: Evaluator, encoder: Encoder, masks: np.ndarray):
+        self.ev, self.encoder, self.masks = ev, encoder, masks
+        self._key = None
+        self._rounded = None          # ((coefficients, scale, n_q), ...)
+
+    @debug.spanned("softmax.pts")
+    def __call__(self, max_val: float, in_scale: float, n_q: int,
+                 exp_r: int = 7, sum_scale: float | None = None
+                 ) -> tuple[Plaintext, Plaintext]:
+        if sum_scale is None:
+            sum_scale = float(self.masks.shape[0])
+        key = (max_val, in_scale, n_q, exp_r, sum_scale)
+        if key != self._key:
+            n_e = n_q - exp_taylor_primes(exp_r)      # level of exp output
+            pair = self.ev.level_pair_scale(n_e)
+            enc = self.encoder.encode_coeffs
+            self._rounded = (
+                (enc(-max_val * self.masks, in_scale), in_scale, n_q),
+                (enc(self.masks / sum_scale, pair), pair, n_e))
+            self._key = key
+            softmax_pts_calls["encoded"] += 2
+        else:
+            softmax_pts_calls["reused"] += 2
+        return tuple(Plaintext(rounded_to_ntt(self.ev.ctx, self.encoder, c,
+                                              n), scale)
+                     for c, scale, n in self._rounded)
 
 
 @debug.spanned("softmax")
@@ -374,13 +399,18 @@ def softmax_exp_sum(ev: Evaluator, encoder: Encoder, x: Ciphertext,
                     ) -> tuple[Ciphertext, Ciphertext]:
     """Softmax phase 1: (x - max) -> exp -> mask/sum_scale -> column sum
     + eps.  Returns (e, s); ``s`` is the single sum ciphertext.  ``ev`` may
-    be a ShardedEvaluator (``parallel.sharding.softmax_diag_sharded``)."""
+    be a ShardedEvaluator (``parallel.sharding.softmax_diag_sharded``).
+    ``pts``: the two plaintexts, or a ``SoftmaxPts`` of ``masks`` that
+    makes them (None: encoded here)."""
     R = masks.shape[0]
     if sum_scale is None:
         sum_scale = float(R)
     if pts is None:
-        pts = softmax_pts(ev, encoder, masks, max_val, x.scale, x.n_q,
-                          exp_r=exp_r, sum_scale=sum_scale)
+        pts = SoftmaxPts(ev, encoder, masks)
+    if isinstance(pts, SoftmaxPts):
+        if pts.masks is not masks:
+            raise ValueError("the SoftmaxPts memo holds other masks")
+        pts = pts(max_val, x.scale, x.n_q, exp_r=exp_r, sum_scale=sum_scale)
     neg_max, mask_pt = pts
     x1 = ev.add_plain(x, neg_max)
     e = exp_taylor(ev, x1, r=exp_r)

@@ -977,8 +977,8 @@ def cpmm_sharded(sev: ShardedEvaluator, mm, x: ShardedCiphertext
 def softmax_diag_sharded(sev: ShardedEvaluator, encoder,
                          x: ShardedCiphertext, masks, max_val: float,
                          refresh, inv_iters: int = 16, eps: float = 1e-5,
-                         out_n_q: int | None = None, exp_r: int = 7
-                         ) -> ShardedCiphertext:
+                         out_n_q: int | None = None, exp_r: int = 7,
+                         pts=None) -> ShardedCiphertext:
     """``ops.nonlinear.softmax_diag`` over the mesh: ``softmax_exp_sum``
     and ``softmax_finish`` run over ``sev``.  x's diagonals are split over
     col (a replicated x, as ``ccmm_col_to_diag_sharded`` returns it, is
@@ -989,10 +989,11 @@ def softmax_diag_sharded(sev: ShardedEvaluator, encoder,
     (ShardedCiphertext -> ShardedCiphertext, called once); the sum is then
     broadcast over col and every row takes its Goldschmidt inverse
     (replicated over col, as GSPMD places it, its limbs split where x's
-    are), and multiplies it into its own diagonals."""
+    are), and multiplies it into its own diagonals.  ``pts`` as
+    ``softmax_exp_sum`` takes it."""
     from ..ops.nonlinear import softmax_exp_sum, softmax_finish
     e, s = softmax_exp_sum(sev, encoder, _split_cols(sev, x), masks, max_val,
-                           eps=eps, exp_r=exp_r)
+                           eps=eps, exp_r=exp_r, pts=pts)
     return softmax_finish(sev, e, _replicate(sev, refresh(s)),
                           inv_iters=inv_iters, out_n_q=out_n_q)
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from moai_tpu_torch.entry import balanced_input_scale, build_head, head_oracle
+from moai_tpu_torch.ops import nonlinear
 from moai_tpu_torch.params import Context, head_config
 
 torch.set_num_threads(1)
@@ -38,6 +39,27 @@ def test_head_matches_oracle(nominal):
     # rows past an input's length are zero
     for j, n in enumerate(h.lens):
         assert np.abs(got[j, n:]).max(initial=0.0) < TOL
+
+
+def test_softmax_plaintexts_encoded_once_per_head():
+    """A head encodes its softmax's two plaintexts on its first pass and
+    makes later passes' from the kept coefficients, with the same output;
+    a head of other lengths (seed 12: lengths 7, 5, 8 where seed 11 draws
+    4, 4, 7) encodes its own and meets the oracle."""
+    calls = nonlinear.softmax_pts_calls
+    nonlinear.reset_softmax_pts_calls()
+    h = build_head(**DIMS, device="cpu")
+    first = h.fn(h.x_data)
+    assert calls == {"encoded": 2, "reused": 0}
+    second = h.fn(h.x_data)
+    assert calls == {"encoded": 2, "reused": 2}
+    assert torch.equal(first.data, second.data) \
+        and first.scale == second.scale
+    other = build_head(**DIMS, seed=12, device="cpu")
+    assert not np.array_equal(other.lens, h.lens)
+    got = other.decode(other.fn(other.x_data))
+    assert calls == {"encoded": 4, "reused": 2}
+    assert np.abs(got - other.oracle()).max() < TOL
 
 
 def test_oracle_is_softmax_attention_in_the_limit():

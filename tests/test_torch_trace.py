@@ -110,25 +110,36 @@ def test_spans_sit_on_the_profilers_clock():
 
 
 def test_head_span_tree_and_output():
+    """The first pass encodes the softmax's two plaintexts under
+    ``softmax.pts``; a later pass makes them from the head's kept
+    coefficients, with no ``encode`` below it, and the same output as
+    untraced."""
     with debug.tracing() as setup:
         h = build_head(**HEAD, device="cpu")
     roots = [s.name for s in setup.spans if s.parent < 0]
     assert {"context", "keygen.galois", "keygen.public",
             "keygen.relin"} <= set(roots)
+    with debug.tracing() as first:
+        out = h.fn(h.x_data)
     plain = h.fn(h.x_data)
     with debug.tracing() as trace:
         traced = h.fn(h.x_data)
     assert torch.equal(plain.data, traced.data) \
         and plain.scale == traced.scale
-    top = [name for depth, name in _tree(trace) if depth <= 1]
-    assert top == ["head", "cpmm", "cpmm", "cpmm", "ccmm_col_to_diag",
-                   "softmax", "ccmm_diag_to_col"]
+    assert torch.equal(out.data, traced.data)
+    for tr in (first, trace):
+        top = [name for depth, name in _tree(tr) if depth <= 1]
+        assert top == ["head", "cpmm", "cpmm", "cpmm", "ccmm_col_to_diag",
+                       "softmax", "ccmm_diag_to_col"]
+        assert {s.pass_id for s in tr.spans} == {0}
+    first_paths = [first.path(i) for i in range(len(first.spans))]
     paths = [trace.path(i) for i in range(len(trace.spans))]
     assert "head/softmax/softmax.pts" in paths
-    encodes = [p for p in paths
+    encodes = [p for p in first_paths
                if p.startswith("head/softmax/softmax.pts/encode")]
-    assert len(encodes) >= 2
-    assert {s.pass_id for s in trace.spans} == {0}
+    assert len(encodes) == 2
+    assert not [p for p in paths
+                if p.startswith("head/softmax/softmax.pts/encode")]
 
 
 def test_bootstrap_stage_spans_beside_on_stage():
