@@ -5,6 +5,10 @@ bootstrap, end to end.
   encrypted attention head (Q/K/V CPMM -> QK^T CCMM -> polynomial softmax
   with an in-budget Goldschmidt inverse -> softmax*V CCMM) over an
   interleaved batch of ``num_x`` inputs of ``num_row`` tokens.
+- ``build_lfm2_conv``: one chip's channel share of LFM2's gated
+  short-convolution mixer (``models.lfm2.EncryptedShortConv``: in_proj
+  CPMM, the two gating products, the causal token-shift conv, the
+  row-parallel out_proj) over the same packing.
 - ``build_layer``: one BERT encoder layer (``models.bert.
   EncryptedBertLayer``) on the harness Recryptor refresh, as
   ``tests/test_model.py`` builds the JAX one, with weights from
@@ -45,15 +49,18 @@ from .encoder import Encoder
 from .encrypt import Encryptor, Decryptor
 from .evaluator import Evaluator
 from .keys import KeyGenerator
+from .models import lfm2_reference
 from .models.bert import (BertDims, BertLayerWeights, DepthPlan,
                           EncryptedBertLayer, EncryptedBertModel,
                           calibrate_domains, galois_steps_for_model,
                           load_reference_layer, plain_bert_layer)
+from .models.lfm2 import LEVELS, EncryptedShortConv, Lfm2ConvDims
 from .ops.matmul import (CPMM, ccmm_col_to_diag, ccmm_diag_to_col,
                          ccmm_col_steps, ccmm_diag_steps, col_chunk_for)
 from .ops.nonlinear import (SoftmaxPts, softmax_diag, diag_valid_masks,
                             fit_gelu_cheb, fit_rsqrt_line)
 from .ops.packing import batch_input, bias_vec, unpack_batch
+from .ops.shortconv import shift_steps
 from .params import CKKSConfig, Context, head_config, resolve_device
 from .parallel.sharding import (Mesh, ShardedCiphertext, ShardedEvaluator,
                                 ccmm_col_to_diag_sharded,
@@ -227,6 +234,75 @@ def head_oracle(xs: np.ndarray, weights: dict, lens, exp_r: int,
             inv *= 1.0 + y ** (1 << i)
         out[j, :n] = (e / num_row * inv[:, None]) @ v
     return out
+
+
+@dataclasses.dataclass
+class Lfm2Conv:
+    fn: Callable[[torch.Tensor], Ciphertext]   # h data -> the share's y
+    x_data: torch.Tensor       # encrypted h [hidden_size, 2, L, N]
+    ctx: Context
+    decryptor: Decryptor
+    xs: np.ndarray             # plaintext h [input_count, num_row, H]
+    weights: dict              # in_proj, conv, out_proj (nn layouts)
+    lens: np.ndarray           # tokens per sequence
+    dims: Lfm2ConvDims
+    ev: Evaluator              # its keys: relinearization, the shifts
+    mixer: EncryptedShortConv
+
+    def decode(self, out: Ciphertext) -> np.ndarray:
+        """Decrypt the share's y -> [input_count, num_row, hidden_size]."""
+        sm = self.decryptor.decrypt(out).real
+        return unpack_batch(sm, self.dims.num_x, self.dims.num_row,
+                            len(self.lens))
+
+    def oracle(self) -> np.ndarray:
+        """The share's y from ``lfm2_reference.mixer`` in float64."""
+        return lfm2_reference.mixer(self.xs, self.weights, self.lens,
+                                    self.dims.channels).numpy()
+
+
+def build_lfm2_conv(logN: int = 16, n_data_levels: int = LEVELS,
+                    dims: Lfm2ConvDims = Lfm2ConvDims(),
+                    input_count: int | None = None, seed: int = 11,
+                    device="cuda", weights: dict | None = None) -> Lfm2Conv:
+    """Keys, weights, plaintexts and the encrypted h of one channel share
+    of LFM2's conv mixer, on ``head_config(logN, n_data_levels)``.
+
+    From ``seed``: the client's keys (relinearization, and Galois keys for
+    the conv's shifts only), the sequences' lengths U{num_row/2..num_row}
+    and h ~ N(0, 1) [input_count, num_row, hidden_size] in
+    ``lfm2_reference.inputs``'s order, and with ``weights=None`` the
+    weights of ``lfm2_reference.weights``.  h is encrypted at ctx.scale on
+    the whole chain; the mixer raises where the chain holds fewer than its
+    ``LEVELS`` levels."""
+    dev = resolve_device(device)
+    ctx = Context(head_config(logN, n_data_levels), device=dev)
+    if dims.num_x * dims.num_row != ctx.cfg.slots:
+        raise ValueError(f"num_x*num_row = {dims.num_x * dims.num_row} != "
+                         f"{ctx.cfg.slots} slots")
+    input_count = dims.num_x if input_count is None else input_count
+    enc = Encoder(ctx)
+    kg = KeyGenerator(ctx, seed=seed, device=dev)
+    gks = kg.gen_galois_keys(steps=shift_steps(dims.num_x,
+                                               dims.conv_L_cache))
+    encryptor = Encryptor(ctx, enc, kg.gen_public_key(), kg, device=dev)
+    ev = Evaluator(ctx, relin_key=kg.gen_relin_key(), galois_keys=gks,
+                   device=dev)
+    lens, xs = lfm2_reference.inputs(seed, input_count, dims.num_row,
+                                     dims.hidden_size, dims.num_row // 2,
+                                     dims.num_row)
+    if weights is None:
+        weights = lfm2_reference.weights(seed, dims.hidden_size,
+                                         dims.conv_L_cache)
+    mixer = EncryptedShortConv(ev, enc, dims, weights, lens, ctx.L)
+    x0 = batch_input(encryptor, xs, dims.num_x, dims.num_row, n_q=ctx.L)
+
+    def lfm2_fn(x_data: torch.Tensor) -> Ciphertext:
+        return mixer(Ciphertext(x_data, ctx.scale, True))
+
+    return Lfm2Conv(lfm2_fn, x0.data, ctx,
+                    Decryptor(ctx, enc, kg.sk, device=dev), xs, weights,
+                    np.asarray(lens), dims, ev, mixer)
 
 
 def _decode_layer_output(decryptor: Decryptor, ctx: Context,

@@ -9,9 +9,10 @@ step over limb shards, the column-sharded CCMM and refresh) against the
 same programs unsharded on one card, over a virtual mesh on one card and
 over a mesh of real cards where the host has more than one, and the
 sharded attention head (entry.build_sharded_head) on a virtual (2, 2) mesh
-against the unsharded head; a span (utils/debug.py) holding its NTT
-kernels on the profiler's clock, and every kernel's launch shapes counting
-its launches.
+against the unsharded head; a channel share of LFM2's conv mixer
+(entry.build_lfm2_conv) against the same share on the CPU; a span
+(utils/debug.py) holding its NTT kernels on the profiler's clock, and every
+kernel's launch shapes counting its launches.
 
 This file imports neither JAX nor moai_tpu, so it runs on a GPU host
 without them (tests/conftest.py imports JAX, hence ``--noconftest``):
@@ -30,11 +31,13 @@ from moai_tpu_torch import limb_cuda, ntt_cuda, serial
 from moai_tpu_torch import mod_arith as ma
 from moai_tpu_torch.encoder import Encoder
 from moai_tpu_torch.encrypt import Encryptor
-from moai_tpu_torch.entry import (build_bootstrap, build_head, build_model,
+from moai_tpu_torch.entry import (build_bootstrap, build_head,
+                                  build_lfm2_conv, build_model,
                                   build_sharded_ccmm, build_sharded_head,
                                   build_sharded_step)
 from moai_tpu_torch.keys import KeyGenerator
 from moai_tpu_torch.models.bert import BertDims, DepthPlan
+from moai_tpu_torch.models.lfm2 import Lfm2ConvDims
 from moai_tpu_torch.ntt import ntt, intt, ntt_plain, intt_plain
 from moai_tpu_torch.params import CKKSConfig, Context, \
     test_config as _test_config
@@ -387,6 +390,23 @@ def test_bootstrap_on_card_equals_cpu(card):
                      hamming_weight=64)
     on_card = build_bootstrap(cfg, 2, seed=101, device=card)
     on_cpu = build_bootstrap(cfg, 2, seed=101, device="cpu")
+    got = on_card.fn(on_card.x_data)
+    want = on_cpu.fn(on_cpu.x_data)
+    assert got.scale == want.scale
+    assert torch.equal(got.data.cpu(), want.data)
+
+
+def test_lfm2_conv_on_card_equals_cpu(card):
+    """A channel share of LFM2's conv mixer (logN 9, hidden 16, channels
+    [4, 8), full-length and shorter sequences) gives the CPU's residues on
+    the card: the CPMMs, the key switches, the hoisted shifts and the
+    mask-and-tap products are exact."""
+    dims = Lfm2ConvDims(hidden_size=16, conv_L_cache=3, channels=(4, 8),
+                        num_x=32, num_row=8)
+    on_card = build_lfm2_conv(logN=9, dims=dims, input_count=3, seed=7,
+                              device=card)
+    on_cpu = build_lfm2_conv(logN=9, dims=dims, input_count=3, seed=7,
+                             device="cpu")
     got = on_card.fn(on_card.x_data)
     want = on_cpu.fn(on_cpu.x_data)
     assert got.scale == want.scale
