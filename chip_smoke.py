@@ -9,11 +9,11 @@ naming phases runs only those (``layer`` runs only when named: the model's layer
 chains, and with MOAI_LIMB_SOURCE naming another limb.cu builds them from
 that file, so two versions compare in one call).
 
-1. Builds the kernels (moai_tpu_torch/csrc/ntt.cu and csrc/limb.cu) with
-   nvcc for sm_90a, one nvcc per source, in parallel; prints each
-   kernel's registers and spills and the SASS instruction mix of the limb
-   kernels (cuobjdump), and reads the card's maximum SM clock for the
-   integer bound.
+1. Builds the kernels (moai_tpu_torch/csrc/ntt.cu, csrc/limb.cu and
+   csrc/modmat.cu) with nvcc for sm_90a, one nvcc per source, in
+   parallel; prints each kernel's registers and spills and the SASS
+   instruction mix of the limb and CPMM kernels (cuobjdump), and reads
+   the card's maximum SM clock for the integer bound.
 2. bootstrap: at N=2^16 on flagship_config (entry.build_bootstrap: 32768
    slots, L 74 = q0 pair + 20 data pairs + 16 boot pairs, K 13, dnum 6,
    Galois keys for every CoeffToSlot/SlotToCoeff step and the
@@ -41,9 +41,15 @@ that file, so two versions compare in one call).
    768, head_dim 64, 128 tokens, 128 interleaved inputs, logN 15, L 34)
    with weights drawn at BERT-base magnitude: after set-up, the same check
    and timing on its context (all 45 limbs and slices, [8, 2, 45, 2^15];
-   the limb kernels but diag_mac); then one pass with the launch counts
-   set to 0 just before (the NTT kernels, limb_ew, base_conv and ks_mac
-   must have launched), decrypted and compared with the float64 oracle.
+   the limb kernels but diag_mac), and the CPMM's kernels
+   (check_modmat_kernels: digit_split and bucket_fold torch.equal to their
+   plain versions at the head's product shape CPMM_SHAPE, J 768, I 64,
+   P 2, N 2^16, and timed beside their byte bounds; mod_matmul there
+   torch.equal to the CPU path, and at LFM2's out_proj shape CPMM_WIDE,
+   I 2048 on two limbs, to an exact float64 product on the card); then
+   one pass with the launch counts set to 0 just before (the NTT kernels,
+   limb_ew, base_conv, ks_mac, digit_split and bucket_fold must have
+   launched), decrypted and compared with the float64 oracle.
 4. shard: the sharded programs (moai_tpu_torch/parallel/sharding.py) on
    virtual meshes of cuda:0 (mesh positions time-sharing the card), on the
    bootstrap's and the head's contexts and keys (kept from those phases;
@@ -117,13 +123,14 @@ ks_mac at its commonest hoisted shape through real Galois permutations
 ("main" and "hoisted" in their rows).
 
 Prints a {"kernels": [...]} line, one row per kernel and path (diag_mac
-on the bootstrap and shard only): each row's check and timings come from
+on the bootstrap and shard only, digit_split and bucket_fold on the
+others): each row's check and timings come from
 that path's context (the shard paths': the windows above) and its
 launches from that path's run (the shard paths': all their sharded runs);
 the limb kernels'
 bound is the larger of the byte bound (the tensors' own element sizes:
-4-byte residues) and the integer bound (``bound_by``), the NTT's the
-byte bound; then the card's
+4-byte residues) and the integer bound (``bound_by``), the NTT's and
+the CPMM kernels' the byte bound; then the card's
 name and power limit, and as its last line {"ok": true, "device":
 {...}}.  Exits non-zero, printing no result,
 without a CUDA card or without the package beside it.
@@ -131,6 +138,7 @@ without a CUDA card or without the package beside it.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import os
@@ -200,6 +208,7 @@ BOOT_ATOL = 2e-3
 # Each kernel: what it replaces in the JAX package (a Pallas kernel, or
 # jnp code that XLA fuses) and its source.
 NTT_SRC, LIMB_SRC = "moai_tpu_torch/csrc/ntt.cu", "moai_tpu_torch/csrc/limb.cu"
+MODMAT_SRC = "moai_tpu_torch/csrc/modmat.cu"
 KERNELS = {
     "ntt_fwd": ("moai_tpu/pallas_ntt.py:282", NTT_SRC),
     "ntt_inv": ("moai_tpu/pallas_ntt.py:301", NTT_SRC),
@@ -212,7 +221,20 @@ KERNELS = {
                "_ks_mac_moddown; rotate_hoisted :456)", LIMB_SRC),
     "diag_mac": ("moai_tpu/boot/linear.py:59 (jnp multiply_plain + add_mod "
                  "sum of apply_diagonals)", LIMB_SRC),
+    "digit_split": ("moai_tpu/modmat.py:33 (jnp balanced digits of "
+                    "mod_matmul's x, :91)", MODMAT_SRC),
+    "bucket_fold": ("moai_tpu/modmat.py:110 (jnp offset, mont_mul and "
+                    "add_mod of each digit bucket of mod_matmul)", MODMAT_SRC),
 }
+# The CPMM's kernels, which only the paths with a ciphertext x plaintext
+# matmul launch (not the bootstrap's).
+CPMM_KERNELS = ("digit_split", "bucket_fold")
+# The CPMM's shapes the modmat kernels are held at: the head's Q/K/V
+# product (J 768 input columns, I 64 outputs, P 2, N 2^16, as in the
+# benchmark's head-n16-pass) and LFM2's out_proj (J 256, I 2048), whose
+# output offsets pass 2^31 bytes at two limbs.
+CPMM_SHAPE = dict(J=768, I=64, P=2, N=1 << 16)
+CPMM_WIDE = dict(J=256, I=2048, P=2, N=1 << 16)
 # The commonest launch shapes of base_conv, ks_mac and hoisted ks_mac in
 # each path's pass (limb_cuda.conv_shape and mac_shape; from the default
 # run's "launch shapes" lines), which the kernels phase times without
@@ -230,11 +252,11 @@ MAIN_SHAPES = {
 }
 # The kernels each path must launch: diag_mac serves the bootstrap's linear
 # transforms only.
-PATH_KERNELS = {"bootstrap": list(KERNELS), "shard": list(KERNELS),
-                "head": [k for k in KERNELS if k != "diag_mac"],
-                "shard_head": [k for k in KERNELS if k != "diag_mac"],
-                "model": [k for k in KERNELS if k != "diag_mac"],
-                "layer": [k for k in KERNELS if k != "diag_mac"]}
+_BOOT_KERNELS = [k for k in KERNELS if k not in CPMM_KERNELS]
+_HEAD_KERNELS = [k for k in KERNELS if k != "diag_mac"]
+PATH_KERNELS = {"bootstrap": _BOOT_KERNELS, "shard": _BOOT_KERNELS,
+                "head": _HEAD_KERNELS, "shard_head": _HEAD_KERNELS,
+                "model": _HEAD_KERNELS, "layer": _HEAD_KERNELS}
 
 
 # The shard phase: the (col, limb) shapes of its virtual meshes on cuda:0,
@@ -291,7 +313,8 @@ def int32_ops_per_s() -> float:
 
 
 def sass_mix(lib) -> dict:
-    """The instruction mix of each instantiation of the limb kernels in
+    """The instruction mix of each instantiation of the limb and CPMM
+    kernels in
     the built library (cuobjdump -sass): {function: {opcode: count}}, or
     {} where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -305,7 +328,8 @@ def sass_mix(lib) -> dict:
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             cur = None
-            for k in ("limb_ew", "base_conv", "ks_mac", "diag_mac"):
+            for k in ("limb_ew", "base_conv", "ks_mac", "diag_mac",
+                      "digit_split", "bucket_fold"):
                 if k in name:
                     cur = mix.setdefault(f"{k}<{name.split('ILi')[1].split('E')[0]}>"
                                          if "ILi" in name else name, {})
@@ -362,8 +386,9 @@ def device_ms(fn, calls: int = 10) -> dict:
 
 
 def launch_counts() -> dict:
-    from moai_tpu_torch import limb_cuda, ntt_cuda
-    return {**ntt_cuda.launches, **limb_cuda.launches}
+    from moai_tpu_torch import limb_cuda, modmat_cuda, ntt_cuda
+    return {**ntt_cuda.launches, **limb_cuda.launches,
+            **modmat_cuda.launches}
 
 
 def launch_shapes() -> dict:
@@ -374,9 +399,10 @@ def launch_shapes() -> dict:
 
 
 def reset_launches() -> None:
-    from moai_tpu_torch import limb_cuda, ntt_cuda
+    from moai_tpu_torch import limb_cuda, modmat_cuda, ntt_cuda
     ntt_cuda.reset_launches()
     limb_cuda.reset_launches()
+    modmat_cuda.reset_launches()
 
 
 def require_launches(path: str, launches: dict, kern: dict) -> None:
@@ -454,6 +480,8 @@ def check_kernels(ctx, path: str, window=None) -> dict:
     log("round trip intt(ntt(x)) == x")
     del x, fwd
     res.update(check_limb_kernels(ctx, path, window))
+    if "digit_split" in PATH_KERNELS[path]:
+        res.update(check_modmat_kernels(ctx, whole=path == "head"))
     return res
 
 
@@ -725,12 +753,146 @@ def check_limb_kernels(ctx, path: str, window=None) -> dict:
     return res
 
 
+def exact_matmul(x: torch.Tensor, w: torch.Tensor, qs) -> torch.Tensor:
+    """sum_j x[j, p, l, n] w[l, j, i] mod qs[l], canonical int32
+    [I, P, L, N], on x's device and apart from modmat: each residue
+    split into 15-bit halves, whose products over J <= 8192 sum below 2^53,
+    so four float64 GEMMs are exact; the halves recombined mod q in
+    int64."""
+    J, P, L, N = x.shape
+    I = w.shape[-1]
+    out = torch.empty((I, P, L, N), dtype=torch.int32, device=x.device)
+    for li, q in enumerate(int(v) for v in qs):
+        xl = x[:, :, li, :].reshape(J, P * N).long()
+        wl = w[li].t().to(x.device).long()
+        xh, xo = (xl >> 15).double(), (xl & 0x7FFF).double()
+        wh, wo = (wl >> 15).double(), (wl & 0x7FFF).double()
+        acc = (wh @ xh).long().remainder_(q).mul_((1 << 30) % q)
+        acc.remainder_(q).add_(((wh @ xo) + (wo @ xh)).long().remainder_(q)
+                               .mul_((1 << 15) % q).remainder_(q))
+        acc.add_((wo @ xo).long()).remainder_(q)
+        out[:, :, li, :] = acc.view(I, P, N).int()
+        del xl, xh, xo, wh, wo, acc
+    return out
+
+
+def cpmm_operands(qs, J: int, I: int, P: int, N: int, seed: int):
+    """A CPMM's mod_matmul operands on the card for the primes ``qs``: x
+    a window of limbs 1.. of residues [J, P, len(qs) + 1, N] (0, 1 and
+    q - 1 in its first columns), the weights' residues [L, J, I] (q - 1 in
+    their first row) with their digits, and the tables."""
+    from moai_tpu_torch import mod_arith as ma
+    from moai_tpu_torch import modmat
+    qt = torch.tensor([qs[0]] + list(qs), dtype=torch.int64, device="cuda")
+    torch.manual_seed(seed)
+    big = random_residues(qt, (J, P), N)
+    big[..., 0], big[..., 1] = 0, 1
+    big[..., 2] = (qt - 1).int()
+    rng = np.random.default_rng(seed)
+    w = np.stack([rng.integers(0, q, size=(J, I)) for q in qs])
+    w[:, 0] = np.array(qs)[:, None] - 1
+    tables = (torch.from_numpy(modmat.host_bucket_consts(list(qs))),
+              torch.tensor(qs, dtype=torch.int32),
+              torch.tensor([ma.mont_constants(q)["rinv"] for q in qs],
+                           dtype=torch.int32))
+    return (big[:, :, 1:], torch.from_numpy(w),
+            torch.from_numpy(modmat.host_weight_digits(w)), tables)
+
+
+def check_modmat_kernels(ctx, whole: bool) -> dict:
+    """The CPMM's kernels against their plain versions on the card at the
+    head's product shape (CPMM_SHAPE), with two of this chain's primes:
+    digit_split of each limb of a limb window of x; bucket_fold of a
+    product holding +-2^29 into every bucket with and without an
+    accumulator, in place, and into an output limb's strides; each timed
+    at its main case beside its byte bound.  With ``whole`` (the head
+    phase), mod_matmul at CPMM_SHAPE on one limb torch.equal to the CPU
+    path, and at CPMM_WIDE on two limbs to exact_matmul on the card."""
+    from moai_tpu_torch import modmat, modmat_cuda
+    J, I, P, N = (CPMM_SHAPE[k] for k in "JIPN")
+    qs = [ctx.q_primes[0], ctx.q_primes[ctx.L - 1]]
+    x, _, _, (bm, q, rinv) = cpmm_operands(qs, J, I, P, N, seed=2)
+    res = {}
+    Jp = modmat_cuda.padded_j(J)
+    res["digit_split"] = measure("digit_split", [
+        (lambda l=l: modmat_cuda.digit_split(x[:, :, l, :]),
+         lambda l=l: modmat.digit_split_plain(x[:, :, l, :]))
+        for l in range(len(qs))],
+        lambda: modmat_cuda.digit_split(x[:, :, 1, :]),
+        lambda: modmat.digit_split_plain(x[:, :, 1, :]),
+        J * P * N * x.element_size() + P * N * modmat.NDIG * Jp, (J, P, N))
+    del x
+    Ip, lim = modmat._pad(I, 8, least=24), 1 << 29
+    gen = torch.Generator("cuda").manual_seed(3)
+    part = torch.randint(-lim, lim + 1, (Ip, P * N), device="cuda",
+                         generator=gen, dtype=torch.int32)
+    part[0, :2], part[1, :2] = lim, -lim
+    qd = torch.tensor(qs, dtype=torch.int64, device="cuda")
+    acc = random_residues(qd[1:], (I, P), N)[:, :, 0]
+    acc[..., 0], acc[..., 1] = 0, qs[1] - 1
+    k_args = [(bm[k, 1].cuda(), q[1].cuda()) for k in range(2 * modmat.NDIG
+                                                          - 1)]
+    r1 = rinv[1].cuda()
+
+    def into_limb(fold, a, *extra):
+        o = torch.zeros((I, P, 3, N), dtype=torch.int32, device="cuda")
+        fold(part, a, o[:, :, 1, :], *extra)
+        return o
+
+    def in_place(fold, *extra):
+        a = acc.clone()
+        return fold(part, a, a, *extra)
+    pairs = []
+    for c, qq in k_args:
+        kf = functools.partial(modmat_cuda.bucket_fold, c=c, q=qq)
+        pf = functools.partial(modmat.bucket_fold_plain, c=c, q=qq, rinv=r1)
+        pairs += [(lambda kf=kf: kf(part, None, torch.empty_like(acc)),
+                   lambda pf=pf: pf(part, None, torch.empty_like(acc))),
+                  (lambda kf=kf: in_place(kf), lambda pf=pf: in_place(pf)),
+                  (lambda kf=kf: into_limb(kf, acc),
+                   lambda pf=pf: into_limb(pf, acc)),
+                  (lambda kf=kf: into_limb(kf, None),
+                   lambda pf=pf: into_limb(pf, None))]
+    c, qq = k_args[3]
+    res["bucket_fold"] = measure(
+        "bucket_fold", pairs,
+        lambda: modmat_cuda.bucket_fold(part, acc, acc, c, qq),
+        lambda: modmat.bucket_fold_plain(part, acc, acc, c, qq, r1),
+        3 * acc.numel() * acc.element_size(), (I, P, N))
+    del part, acc, pairs
+    if whole:
+        x, _, wd, tables = cpmm_operands(qs[1:], J, I, P, N, seed=4)
+        t0 = time.time()
+        want = modmat.mod_matmul(x.cpu(), wd, *tables)
+        cpu_s = time.time() - t0
+        got = modmat.mod_matmul(x, wd.cuda(), *[t.cuda() for t in tables])
+        if not torch.equal(got.cpu(), want):
+            raise SystemExit(f"mod_matmul on the card differs from the CPU "
+                             f"path at {CPMM_SHAPE}")
+        log(f"mod_matmul at {CPMM_SHAPE}, one limb of a window: equal to "
+            f"the CPU path ({cpu_s:.1f} s there)")
+        del x, wd, got, want
+        J, I, P, N = (CPMM_WIDE[k] for k in "JIPN")
+        x, w, wd, tables = cpmm_operands(qs, J, I, P, N, seed=5)
+        got = modmat.mod_matmul(x, wd.cuda(), *[t.cuda() for t in tables])
+        if not torch.equal(got, exact_matmul(x, w, qs)):
+            raise SystemExit(f"mod_matmul on the card differs from the "
+                             f"exact product at {CPMM_WIDE}")
+        log(f"mod_matmul at {CPMM_WIDE}, two limbs of a window: equal to "
+            f"the exact float64 product (output {got.nbytes / 2**30:.2f} "
+            f"GiB)")
+        del x, w, wd, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def profile_summary(prof, wall: float) -> dict:
     """Device time by kernel from a stopped torch.profiler run, read from
     its raw events (``key_averages()`` parses every event in Python: ~2
     minutes for the half a million kernels of a layer pass): the wall
-    time, the top 10 kernels, every NTT kernel and every limb kernel, and
-    the device's busy share of ``wall``."""
+    time, the top 10 kernels, every NTT kernel and every limb and CPMM
+    kernel, and the device's busy share of ``wall``."""
     from torch.autograd import DeviceType
     by_name = {}
     for e in prof.profiler.kineto_results.events():

@@ -1,12 +1,13 @@
 """Builds the hand-written CUDA sources of ``csrc/`` and loads them.
 
-Each source (``ntt.cu``, ``limb.cu``) is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, into ``_build/``
-beside this file, named by the source's hash (an edited source rebuilds),
-and loaded with ctypes.  ``build`` starts one ``nvcc`` per missing library,
-all at once, and waits for them; ``load`` builds one source at its first
-use.  Nothing is compiled or loaded at import: a machine without the CUDA
-toolkit imports this module and only fails when a kernel is asked for.
+Each source (``ntt.cu``, ``limb.cu``, ``modmat.cu``) is compiled with
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
+into ``_build/`` beside this file, named by the source's hash (an edited
+source rebuilds), and loaded with ctypes.  ``build`` starts one ``nvcc``
+per missing library, all at once, and waits for them; ``load`` builds one
+source at its first use.  Nothing is compiled or loaded at import: a
+machine without the CUDA toolkit imports this module and only fails when a
+kernel is asked for.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from pathlib import Path
 from .utils import debug
 
 HERE = Path(__file__).resolve().parent
-SOURCES = {"ntt": HERE / "csrc" / "ntt.cu", "limb": HERE / "csrc" / "limb.cu"}
+SOURCES = {"ntt": HERE / "csrc" / "ntt.cu", "limb": HERE / "csrc" / "limb.cu",
+           "modmat": HERE / "csrc" / "modmat.cu"}
 BUILD_DIR = HERE / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

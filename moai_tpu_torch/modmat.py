@@ -13,9 +13,15 @@ This is a plain integer matrix product outside any kernel of the JAX
 package, so it goes to the library GEMM.  ``torch.matmul`` has no integer
 path on CUDA; ``torch._int_mm`` needs more than 16 rows and multiples of 8
 in the other two dimensions there, and a column-major right operand, so the
-product is oriented as ``w^T [I, J] @ x_l [J, P*N]`` with x_l stored as
-[P*N, J] and I and J zero-padded to fit.  The loop runs
-limb by limb, so one limb's digits and one bucket are live at a time.
+product is oriented as ``w^T [I, J] @ x_l [J, P*N]`` with x_l's digits
+stored as [P*N, NDIG*Jp] and I and J zero-padded to fit.  With x's digit
+planes ascending and the weights' descending, each digit bucket is one
+GEMM over a contiguous column window of both (``bucket_windows``).  Around
+the GEMMs, the digit split of a limb and the fold of a bucket dispatch on
+the device, as ``mod_arith`` does: on the card the kernels of
+``modmat_cuda`` (csrc/modmat.cu), on the CPU their plain versions here.
+The loop runs limb by limb, so one limb's digits, one bucket's product and
+the accumulator are live at a time.
 """
 
 from __future__ import annotations
@@ -24,9 +30,10 @@ import numpy as np
 import torch
 
 from . import mod_arith as ma
+from . import modmat_cuda
 
-NDIG = 4          # 8-bit digits covering < 2^32
-MAX_J = 8192      # keeps |digit dot| < 2^27 (J * 128 * 128)
+NDIG = modmat_cuda.NDIG   # 8-bit digits covering < 2^32
+MAX_J = 8192              # keeps |digit dot| < 2^27 (J * 128 * 128)
 
 
 def _balanced_digits(x: torch.Tensor) -> list[torch.Tensor]:
@@ -70,8 +77,62 @@ def host_bucket_consts(qs: list[int]) -> np.ndarray:
     return cmul
 
 
-def _pad8(n: int, least: int = 8) -> int:
-    return max(least, -(-n // 8) * 8)
+def _pad(n: int, align: int, least: int = 0) -> int:
+    return max(least, -(-n // align) * align)
+
+
+def digit_split_plain(xl: torch.Tensor) -> torch.Tensor:
+    """One limb xl [J, P, N] -> int8 [P * N, NDIG * Jp]: row p * N + n
+    holds the balanced digit planes 0..NDIG-1 of xl[:, p, n], each
+    Jp = modmat_cuda.padded_j(J) wide, zero past J."""
+    J, P, N = xl.shape
+    Jp = modmat_cuda.padded_j(J)
+    xd = torch.zeros((P, N, NDIG, Jp), dtype=torch.int8, device=xl.device)
+    for d, dig in enumerate(_balanced_digits(xl)):
+        xd[:, :, d, :J] = dig.permute(1, 2, 0)
+    return xd.view(P * N, NDIG * Jp)
+
+
+def bucket_fold_plain(part: torch.Tensor, acc, out: torch.Tensor,
+                      c: torch.Tensor, q: torch.Tensor,
+                      rinv: torch.Tensor) -> torch.Tensor:
+    """out = (acc + (part[:I] mod q) * c * R^-1) mod q, canonical: a digit
+    bucket's product part [>= I, P * N] (|part| <= 2^29) folded with
+    c = 2^(8k) R mod q into the canonical acc [I, P, N] (None: zero).
+    out [I, P, N] may be acc.  Returns out."""
+    I, P, N = out.shape
+    fold = ma.mont_mul_plain(part[:I].remainder(q), c, q, rinv)
+    fold = fold.view(I, P, N)
+    return out.copy_(fold if acc is None else ma.add_mod_plain(acc, fold, q))
+
+
+def digit_split(xl: torch.Tensor) -> torch.Tensor:
+    """``digit_split_plain`` on the CPU, the kernel on the card."""
+    if xl.is_cuda:
+        return modmat_cuda.digit_split(xl)
+    return digit_split_plain(xl)
+
+
+def bucket_fold(part, acc, out, c, q, rinv) -> torch.Tensor:
+    """``bucket_fold_plain`` on the CPU, the kernel on the card (which
+    needs no rinv)."""
+    if out.is_cuda:
+        return modmat_cuda.bucket_fold(part, acc, out, c, q)
+    return bucket_fold_plain(part, acc, out, c, q, rinv)
+
+
+def bucket_windows(Jp: int) -> list[tuple[slice, slice]]:
+    """For each digit bucket k (0..2 NDIG - 2), the column windows of the
+    weight digits (planes in descending order, NDIG - 1 first) and of x's
+    digits (ascending) whose product is bucket k's sum over dx of
+    W_{k-dx} X_dx: one contiguous run of planes in each."""
+    out = []
+    for k in range(2 * NDIG - 1):
+        lo, hi = max(0, k - NDIG + 1), min(NDIG - 1, k)
+        w0 = NDIG - 1 - k + lo
+        out.append((slice(w0 * Jp, (w0 + hi - lo + 1) * Jp),
+                    slice(lo * Jp, (hi + 1) * Jp)))
+    return out
 
 
 def mod_matmul(x: torch.Tensor, w_digits: torch.Tensor,
@@ -79,35 +140,34 @@ def mod_matmul(x: torch.Tensor, w_digits: torch.Tensor,
                rinv: torch.Tensor) -> torch.Tensor:
     """x: int32 [J, P, L, N] Montgomery; w_digits: int8 [NDIG, L, J, I];
     bucket_mul: int32 [2*NDIG-1, L]; q, rinv: int32 [L].  Returns int32
-    [I, P, L, N] Montgomery = sum_j x_j * w_ji mod q_l.  Each digit
-    bucket's product (|part| < 2^29, int32) is reduced, folded by one
-    Montgomery multiply, and added to the canonical accumulator with
-    ``add_mod``, so no sum leaves int32."""
+    [I, P, L, N] Montgomery = sum_j x_j * w_ji mod q_l.
+
+    Per limb: one digit split of x, then per digit bucket one GEMM over a
+    column window of each digit matrix (|part| <= 4 J 2^14 <= 2^29, int32)
+    and one fold into the canonical accumulator, the last bucket's into
+    the output limb, so no sum leaves int32.  One limb's digits, one
+    bucket's product and the accumulator are live at a time."""
     J, P, L, N = x.shape
     I = w_digits.shape[-1]
     if J > MAX_J:
         raise ValueError(f"contraction length {J} above {MAX_J}")
-    Jp, Ip = _pad8(J), _pad8(I, least=24)
-    # w^T digits, zero-padded: [NDIG, L, Ip, Jp]
-    wt = torch.zeros((NDIG, L, Ip, Jp), dtype=torch.int8, device=x.device)
-    wt[:, :, :I, :J] = w_digits.transpose(-1, -2)
+    Jp, Ip = modmat_cuda.padded_j(J), _pad(I, 8, least=24)
+    # w^T digits, zero-padded, planes descending: [L, Ip, NDIG * Jp]
+    wt = torch.zeros((L, Ip, NDIG, Jp), dtype=torch.int8, device=x.device)
+    wt[:, :I, :, :J] = w_digits.flip(0).permute(1, 3, 0, 2)
+    wt = wt.view(L, Ip, NDIG * Jp)
     out = torch.empty((I, P, L, N), dtype=torch.int32, device=x.device)
-    xl = torch.zeros((P * N, Jp), dtype=torch.int32, device=x.device)
+    part = torch.empty((Ip, P * N), dtype=torch.int32, device=x.device)
+    acc = torch.empty((I, P, N), dtype=torch.int32, device=x.device)
+    windows = bucket_windows(Jp)
     for li in range(L):
-        xl[:, :J] = x[:, :, li, :].reshape(J, P * N).t()
-        xd = _balanced_digits(xl)                      # NDIG x [P*N, Jp]
-        ql, rl = q[li], rinv[li]
-        acc = None
-        for k in range(2 * NDIG - 1):
-            part = None
-            for dx in range(max(0, k - NDIG + 1), min(NDIG, k + 1)):
-                # cuBLASLt's int8 product takes a row-major left and a
-                # column-major right operand
-                term = torch._int_mm(wt[k - dx, li], xd[dx].t())  # [Ip, P*N]
-                part = term if part is None else part.add_(term)
-            # |part| < 2^29: reduce, then fold with 2^(8k) R
-            fold = ma.mont_mul(part[:I].remainder_(ql), bucket_mul[k, li],
-                               ql, rl)
-            acc = fold if acc is None else ma.add_mod(acc, fold, ql)
-        out[:, :, li, :] = acc.reshape(I, P, N)
+        xd = digit_split(x[:, :, li, :])               # [P*N, NDIG*Jp]
+        for k, (ws, xs) in enumerate(windows):
+            # cuBLASLt's int8 product takes a row-major left and a
+            # column-major right operand; both windows are read in place
+            torch._int_mm(wt[li, :, ws], xd[:, xs].t(), out=part)
+            last = k == len(windows) - 1
+            bucket_fold(part, None if k == 0 else acc,
+                        out[:, :, li, :] if last else acc,
+                        bucket_mul[k, li], q[li], rinv[li])
     return out

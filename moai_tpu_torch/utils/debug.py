@@ -15,7 +15,8 @@ the same fields and printouts), and the port's span recorder:
   context after one global check.  Inside ``tracing()`` each span records
   its name, its parent, its pass (the outermost open span), its host start
   and end (``time.perf_counter_ns``) and the port's kernel-launch total
-  (``ntt_cuda.launches`` + ``limb_cuda.launches``) at both ends, into the
+  (``ntt_cuda.launches`` + ``limb_cuda.launches`` +
+  ``modmat_cuda.launches``) at both ends, into the
   ``Trace`` that ``tracing`` yields.  A span never synchronises and never
   touches the device: it says what the host was doing.  The device's side
   comes from a profiler trace, which ``Trace.epoch_ns`` puts spans beside
@@ -119,10 +120,11 @@ class Trace:
     ANCHOR_READS = 8
 
     def __init__(self):
-        from .. import limb_cuda, ntt_cuda
+        from .. import limb_cuda, modmat_cuda, ntt_cuda
         self.spans: list[Span] = []
         self._open: list[int] = []
-        self._counters = (ntt_cuda.launches, limb_cuda.launches)
+        self._counters = (ntt_cuda.launches, limb_cuda.launches,
+                          modmat_cuda.launches)
         # the tightest of a few (perf_counter_ns, time_ns) pairs read back
         # to back: the epoch reading against the mid-point of its bracket
         best = None
@@ -135,9 +137,8 @@ class Trace:
         _, self.anchor_perf_ns, self.anchor_epoch_ns = best
 
     def launches(self) -> int:
-        """The port's kernel launches so far (both counters)."""
-        ntt, limb = self._counters
-        return sum(ntt.values()) + sum(limb.values())
+        """The port's kernel launches so far (all its counters)."""
+        return sum(sum(c.values()) for c in self._counters)
 
     def epoch_ns(self, t: int) -> int:
         """A ``perf_counter_ns`` reading as Unix-epoch nanoseconds, the

@@ -10,7 +10,9 @@ same programs unsharded on one card, over a virtual mesh on one card and
 over a mesh of real cards where the host has more than one, and the
 sharded attention head (entry.build_sharded_head) on a virtual (2, 2) mesh
 against the unsharded head; a channel share of LFM2's conv mixer
-(entry.build_lfm2_conv) against the same share on the CPU; a span
+(entry.build_lfm2_conv) against the same share on the CPU; the CPMM's
+digit split and bucket fold (modmat_cuda) against their plain versions,
+and mod_matmul on the card against the CPU's; a span
 (utils/debug.py) holding its NTT kernels on the profiler's clock, and every
 kernel's launch shapes counting its launches.
 
@@ -27,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from moai_tpu_torch import limb_cuda, ntt_cuda, serial
+from moai_tpu_torch import limb_cuda, modmat, modmat_cuda, ntt_cuda, serial
 from moai_tpu_torch import mod_arith as ma
 from moai_tpu_torch.encoder import Encoder
 from moai_tpu_torch.encrypt import Encryptor
@@ -39,7 +41,7 @@ from moai_tpu_torch.keys import KeyGenerator
 from moai_tpu_torch.models.bert import BertDims, DepthPlan
 from moai_tpu_torch.models.lfm2 import Lfm2ConvDims
 from moai_tpu_torch.ntt import ntt, intt, ntt_plain, intt_plain
-from moai_tpu_torch.params import CKKSConfig, Context, \
+from moai_tpu_torch.params import CKKSConfig, Context, head_config, \
     test_config as _test_config
 from moai_tpu_torch.parallel.sharding import gather, make_mesh
 from moai_tpu_torch.primes import ntt_primes_near
@@ -365,10 +367,148 @@ def test_wrappers_refuse_int64(card):
         lambda: limb_cuda.ks_mac(y, key[:, :, :L].long(), L, q),
         lambda: limb_cuda.diag_mac([wide], x[:1], q),
         lambda: limb_cuda.diag_mac([x], wide[:1], q),
+        lambda: modmat_cuda.digit_split(wide),
+    ]
+    part = torch.zeros((24, 2 * N), dtype=torch.int32, device=card)
+    out = torch.zeros((2, 2, N), dtype=torch.int32, device=card)
+    c = q[0]
+    calls += [
+        lambda: modmat_cuda.bucket_fold(part.long(), None, out, c, c),
+        lambda: modmat_cuda.bucket_fold(part, out.long(), out, c, c),
+        lambda: modmat_cuda.bucket_fold(part, None, out.long(), c, c),
+        lambda: modmat_cuda.bucket_fold(part, None, out, c.long(), c),
+        lambda: modmat_cuda.bucket_fold(part, None, out, c, c.long()),
     ]
     for i, call in enumerate(calls):
         with pytest.raises(TypeError):
             call()
+
+
+def _modmat_primes(card, n):
+    """n primes of the CPMM tests, cycling through the largest odd prime
+    below 2^30 of the chains' kind, a 26-bit data prime and 12289."""
+    qs = Context(head_config(11, 3), device="cpu").q_primes
+    cycle = [qs[0], qs[3], 12289]
+    return torch.tensor([cycle[i % 3] for i in range(n)], dtype=torch.int32,
+                        device=card)
+
+
+@pytest.mark.parametrize("J,P,N", [(37, 2, 64), (48, 1, 200), (64, 3, 8),
+                                   (modmat.MAX_J, 2, 16)])
+def test_modmat_kernels_match_plain(card, J, P, N):
+    """digit_split and bucket_fold torch.equal to their plain versions:
+    the split of each limb of a limb window of a larger x (rows of N apart
+    from each other, not contiguous), J on and off the 64-wide tile, N off
+    it, inputs up to 2^31 - 1; the fold of every bucket with part at
+    +-2^29 and acc holding 0 and q - 1, with and without an accumulator,
+    in place, and into an output limb's strides."""
+    L = 3
+    qs = _modmat_primes(card, L + 2)
+    gen = torch.Generator(card).manual_seed(J + N)
+    big = _residues(qs, (J, P), N, gen)                  # [J, P, L + 2, N]
+    big[0, 0, :, :4] = torch.tensor([1 << 30, (1 << 31) - 1, 0x7F7F7F7F,
+                                     0x7F807F80], dtype=torch.int32)
+    x = big[:, :, 1:L + 1]
+    n0 = dict(modmat_cuda.launches)
+    for li in range(L):
+        xl = x[:, :, li, :]
+        assert not xl.is_contiguous()
+        got = modmat_cuda.digit_split(xl)
+        assert got.shape == (P * N, modmat.NDIG * modmat_cuda.padded_j(J))
+        assert torch.equal(got, modmat.digit_split_plain(xl)), li
+    fq = qs[1:L + 1]
+    q, c = fq.cpu(), torch.from_numpy(modmat.host_bucket_consts(fq.tolist()))
+    rinv = torch.tensor([ma.mont_constants(int(v))["rinv"] for v in q],
+                        dtype=torch.int32)
+    I, lim = 5, 1 << 29
+    part = torch.randint(-lim, lim + 1, (24, P * N), device=card,
+                         generator=gen, dtype=torch.int32)
+    part[0, :2], part[1, :2] = lim, -lim
+    out = torch.zeros((I, P, L + 2, N), dtype=torch.int32, device=card)
+    for li in range(L):
+        acc = _residues(fq[li:li + 1], (I, P), N, gen)[:, :, 0]
+        for k in range(2 * modmat.NDIG - 1):
+            args = (c[k, li], q[li])
+            fresh = torch.empty((I, P, N), dtype=torch.int32)
+            want = modmat.bucket_fold_plain(part.cpu(), acc.cpu(), fresh,
+                                            *args, rinv[li]).clone()
+            bare = modmat.bucket_fold_plain(part.cpu(), None, fresh, *args,
+                                            rinv[li])
+            dev = [t.to(card) for t in args]
+            got = modmat_cuda.bucket_fold(part, acc, torch.empty_like(acc),
+                                          *dev)
+            assert torch.equal(got.cpu(), want), (li, k)
+            inplace = acc.clone()
+            modmat_cuda.bucket_fold(part, inplace, inplace, *dev)
+            assert torch.equal(inplace.cpu(), want), (li, k)
+            dst = out[:, :, li + 1, :]
+            modmat_cuda.bucket_fold(part, None, dst, *dev)
+            assert torch.equal(dst.cpu(), bare), (li, k)
+    torch.cuda.synchronize()
+    assert modmat_cuda.launches["digit_split"] - n0["digit_split"] == L
+    assert modmat_cuda.launches["bucket_fold"] - n0["bucket_fold"] == 21 * L
+    assert modmat_cuda.shapes["digit_split"][(J, P, N)] >= L
+    assert modmat_cuda.shapes["bucket_fold"][(I, P, N, False)] >= 7 * L
+
+
+def test_bucket_fold_refuses_unaligned_rows(card):
+    """The fold moves four residues a thread: it raises on N not a
+    multiple of 4 and on a row off a 16-byte boundary, and launches
+    nothing."""
+    q = torch.tensor([12289], dtype=torch.int32, device=card)
+    part = torch.zeros((24, 2 * 6), dtype=torch.int32, device=card)
+    n0 = modmat_cuda.launches["bucket_fold"]
+    with pytest.raises(ValueError):
+        modmat_cuda.bucket_fold(part, None, torch.zeros(
+            (2, 2, 6), dtype=torch.int32, device=card), q, q)
+    flat = torch.zeros(24 * 16 + 1, dtype=torch.int32, device=card)
+    part, shifted = flat[:-1].view(24, 16), flat[1:].view(24, 16)
+    out = torch.zeros((2, 2, 8), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):                 # part off 16 bytes
+        modmat_cuda.bucket_fold(shifted, None, out, q, q)
+    with pytest.raises(ValueError):                 # acc off 16 bytes
+        modmat_cuda.bucket_fold(part, shifted.reshape(-1)[:32].view(
+            2, 2, 8), out, q, q)
+    wide = torch.zeros(2 * 2 * 3 * 8 + 1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):                 # out's limb off 16 bytes
+        modmat_cuda.bucket_fold(part, None, wide[1:].view(2, 2, 3, 8)[
+            :, :, 0], q, q)
+    assert modmat_cuda.launches["bucket_fold"] == n0
+
+
+@pytest.mark.parametrize("J,I,fill", [
+    (37, 5, None), (48, 32, None), (96, 40, "q-1"), (96, 40, "0"),
+    (modmat.MAX_J, 24, "q-1")])
+def test_mod_matmul_on_card_equals_cpu(card, J, I, fill):
+    """mod_matmul on the card (digit_split, seven GEMMs over column
+    windows, bucket_fold) torch.equal to the CPU path: J off and on 16, I
+    below 24 (padding rows) and above, every input and weight residue q - 1
+    or 0, J = MAX_J at q - 1 (the largest bucket sums); x a limb window of
+    a larger tensor, the weights a rows/cols slice and a limb window of
+    larger digits and tables, as CPMM.product and the shards pass them."""
+    L, P, N = 3, 2, 64
+    qs = _modmat_primes(card, L + 2)
+    gen = torch.Generator(card).manual_seed(J + I)
+    big = _residues(qs, (J, P), N, gen)
+    rng = np.random.default_rng(J + I)
+    w = rng.integers(0, 1 << 62, size=(L + 2, J + 3, I + 4)) \
+        % qs.cpu().numpy().astype(np.int64)[:, None, None]
+    if fill is not None:
+        big[:] = qs.reshape(-1, 1) - 1 if fill == "q-1" else 0
+        w[:] = qs.cpu().numpy()[:, None, None] - 1 if fill == "q-1" else 0
+    x = big[:, :, 1:L + 1]
+    wd = torch.from_numpy(modmat.host_weight_digits(w))[:, 1:L + 1, 1:J + 1,
+                                                       2:I + 2]
+    tables = (torch.from_numpy(modmat.host_bucket_consts(qs.tolist())),
+              qs.cpu(), torch.tensor([ma.mont_constants(int(v))["rinv"]
+                                      for v in qs], dtype=torch.int32))
+    tables = [t[..., 1:L + 1] for t in tables]
+    n0 = modmat_cuda.launches["digit_split"]
+    got = modmat.mod_matmul(x, wd.to(card), *[t.to(card) for t in tables])
+    want = modmat.mod_matmul(x.cpu(), wd, *tables)
+    assert got.shape == (I, P, L, N)
+    assert torch.equal(got.cpu(), want)
+    assert modmat_cuda.launches["digit_split"] - n0 == L
 
 
 def test_small_head_on_card(card):

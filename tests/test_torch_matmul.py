@@ -74,9 +74,12 @@ def _enc_batch(jencryptor, d):
     return jbatch_input(jencryptor, xs, NUM_X, NUM_ROW)
 
 
-def test_mod_matmul_exact():
+@pytest.mark.parametrize("J,I", [(37, 5), (48, 32)])
+def test_mod_matmul_exact(J, I):
+    """Padded (J = 37, I = 5) and unpadded (J, I multiples of 16, I >= 24)
+    shapes."""
     qs = ntt_primes_near(29.0, 2 ** 12, 3)
-    J, I, N = 37, 5, 64
+    N = 64
     x = np.stack([RNG.integers(0, q, size=(J, 2, N)) for q in qs], axis=-2)
     w = RNG.integers(0, 1 << 30, size=(len(qs), J, I), dtype=np.uint32)
     c = [ma.mont_constants(q) for q in qs]
