@@ -1207,7 +1207,8 @@ def shard_programs(boot, head, devices, meshes, shapes: dict) -> list:
         return sh.make_mesh(c * l, limb_axis=l, devices=devices[:c * l])
 
     for c, l in meshes["bootstrap"]:
-        refresh = make_refresh(boot.bootstrapper, mesh=mesh_of(c, l))
+        refresh = sh.ShardedBootstrapper(boot.bootstrapper,
+                                         mesh_of(c, l)).make_refresh()
 
         def unsharded():
             boot_out[0] = plain_refresh(x, boot.n_out)
@@ -1273,7 +1274,7 @@ def shard_head_programs(head, devices, meshes, shapes: dict,
     recs = []
     for c, l in meshes:
         mesh = sh.make_mesh(c * l, limb_axis=l, devices=devices[:c * l])
-        S = shard_head(head, mesh, "limb" if l > 1 else "col")
+        S = shard_head(head, mesh)
         split = "col and limb" if l > 1 else "col"
         rec = sharded_vs_unsharded(
             f"head ({HEAD['d_model']} columns, the input over {split})", mesh,
@@ -1374,9 +1375,9 @@ def run_shard() -> dict:
         # on the head's chain)
         N = c.cfg.N
         time_main_shapes(c, kern, {
-            k: {s: m for s, m in v.items()
+            k: {s: m for s, m in pshapes[k].items()
                 if s[5 if k == "base_conv" else 4] == N}
-            for k, v in pshapes.items()})
+            for k in ("base_conv", "ks_mac")})
         paths[path] = kern
     return paths
 

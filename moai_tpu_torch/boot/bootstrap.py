@@ -315,7 +315,7 @@ class Bootstrapper:
         return out
 
 
-def make_refresh(bt: Bootstrapper, m_bound: float = 1.0, mesh=None):
+def make_refresh(bt: Bootstrapper, m_bound: float = 1.0):
     """Adapt a Bootstrapper to the model layers' ``refresh(ct, n_q)``
     callback (models/bert.py).  ``m_bound``: values are reinterpreted to
     |m| <= 1 by declaring scale*m_bound before the bootstrap and undoing
@@ -323,15 +323,7 @@ def make_refresh(bt: Bootstrapper, m_bound: float = 1.0, mesh=None):
     |v|/q0 = |m|*Delta/q0, so callers must keep |m|*Delta within the
     ModReducer's eps (fold real normalization into adjacent plaintext
     constants: LayerNorm gamma before a bootstrap, the next matmul's
-    weights after).  With ``mesh`` (``parallel.sharding.Mesh``) the batch
-    is split over its ``col`` axis, and its limbs over the ``limb`` axis
-    when that axis is longer than 1; each shard is refreshed on its device
-    (by a replica of ``bt``, or limb-sharded with the collectives) and the
-    result gathered back onto the input's device
-    (``ShardedBootstrapper.make_refresh``)."""
-    if mesh is not None:
-        from ..parallel.sharding import ShardedBootstrapper
-        return ShardedBootstrapper(bt, mesh).make_refresh(m_bound)
+    weights after)."""
     ev = bt.ev
 
     @debug.spanned("refresh")

@@ -18,8 +18,8 @@ bootstrap, end to end.
   (``serial.save_layer_state``) and resume (``start_layer``).
 - ``build_bootstrap``: the CKKS bootstrap (``boot.bootstrap``) through
   ``make_refresh``, as the layers call it, over a batch of ciphertexts
-  whose slot values are the oracle; with ``mesh``, the batch split over
-  the mesh's ``col`` axis (``parallel.sharding``).
+  whose slot values are the oracle (over a mesh:
+  ``parallel.sharding.ShardedBootstrapper.make_refresh``).
 - ``build_sharded_step`` and ``build_sharded_ccmm``: the JAX package's
   sharded programs (``tools/scaling_sweep.py``'s evaluator step,
   ``tools/multichip_dryrun.py``'s CCMM) on a mesh, beside the same
@@ -625,8 +625,7 @@ class Bootstrap:
 def build_bootstrap(cfg: CKKSConfig, batch: int, seed: int = 11,
                     m_bound: float = 1.0, lt_group: int | None = None,
                     evalmod_degree: int = EVALMOD_DEGREE,
-                    value_bound: float = 0.8, mesh: Mesh | None = None,
-                    device="cuda") -> Bootstrap:
+                    value_bound: float = 0.8, device="cuda") -> Bootstrap:
     """Context, keys, Bootstrapper and the encrypted input of a bootstrap
     pass over ``batch`` ciphertexts.
 
@@ -639,9 +638,7 @@ def build_bootstrap(cfg: CKKSConfig, batch: int, seed: int = 11,
     spare level above q0, as the layers keep at a refresh.  ``fn``
     refreshes the batch through ``make_refresh(bt, m_bound)`` up to
     ``n_out`` = L - 2 * bt.levels limbs, the data chain above the
-    bootstrap's own levels.  With ``mesh`` (limb axis 1) the refresh
-    splits the batch over the mesh's ``col`` axis and gathers the result
-    back onto ``device``."""
+    bootstrap's own levels."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     ctx = Context(cfg, device=dev)
@@ -663,7 +660,7 @@ def build_bootstrap(cfg: CKKSConfig, batch: int, seed: int = 11,
     if n_out < ctx.n_q0 + 2:
         raise ValueError(f"chain too short: {ctx.L} primes, the bootstrap "
                          f"spends {2 * bt.levels}")
-    refresh = make_refresh(bt, m_bound=m_bound, mesh=mesh)
+    refresh = make_refresh(bt, m_bound=m_bound)
     values = np.random.default_rng(seed).uniform(
         -value_bound, value_bound, (batch, cfg.slots))
     x = encryptor.encrypt_values(values, n_q=ctx.n_q0 + 2)
@@ -686,14 +683,12 @@ def evaluator_step(ev, a, b):
     return ev.rotate(ev.rescale_pair(ev.relinearize(ev.multiply(a, b))), 1)
 
 
-def _shard_for(mesh: Mesh, mode: str):
-    """ct -> ShardedCiphertext: its batch over the mesh's ``col`` axis and,
-    in mode "limb", its limbs over the ``limb`` axis (mode "col": the
-    spec ``P("col", None, None, None)`` of tools/scaling_sweep.py; "limb"
-    on a mesh of one row: ``P(None, None, "limb", None)``)."""
-    if mode not in ("col", "limb"):
-        raise ValueError(f"mode {mode!r} is neither 'col' nor 'limb'")
-    return lambda ct: shard_ciphertext(ct, mesh, limb=mode == "limb")
+def _shard_for(mesh: Mesh):
+    """ct -> ShardedCiphertext: its batch over the mesh's ``col`` axis and
+    its limbs over the ``limb`` axis, ``P("col", None, "limb", None)`` (on
+    a mesh of one column, tools/scaling_sweep.py's ``P("col", None, None,
+    None)``; on one row, ``P(None, None, "limb", None)``)."""
+    return lambda ct: shard_ciphertext(ct, mesh, limb=True)
 
 
 @dataclasses.dataclass
@@ -706,20 +701,19 @@ class ShardedStep:
     ctx: Context
     sev: ShardedEvaluator
     mesh: Mesh
-    mode: str
 
 
-def build_sharded_step(cfg: CKKSConfig, batch: int, mesh: Mesh, mode: str,
+def build_sharded_step(cfg: CKKSConfig, batch: int, mesh: Mesh,
                        seed: int = 3, device="cuda") -> ShardedStep:
     """``tools/scaling_sweep.py``'s program on ``mesh``: keys drawn from
     ``seed`` in its order (the Galois key of rotation 1, the public key,
     the relinearization key), ``batch`` ciphertexts of U(-1, 1) slots from
     ``default_rng(0)`` and the same values reversed, at the full chain.
     ``fn`` runs ``evaluator_step`` on the sharded inputs, ``plain`` the
-    same step unsharded on ``device``; ``mode`` is "col" or "limb"
+    same step unsharded on ``device``; ``shard`` places an input
     (``_shard_for``)."""
     dev = resolve_device(device)
-    shard = _shard_for(mesh, mode)
+    shard = _shard_for(mesh)
     ctx = Context(cfg, device=dev)
     enc = Encoder(ctx)
     kg = KeyGenerator(ctx, seed=seed, device=dev)
@@ -733,7 +727,7 @@ def build_sharded_step(cfg: CKKSConfig, batch: int, mesh: Mesh, mode: str,
     sev = ShardedEvaluator(ev, mesh)
     return ShardedStep(lambda x, y: evaluator_step(sev, x, y),
                        lambda x, y: evaluator_step(ev, x, y), shard, a, b,
-                       ctx, sev, mesh, mode)
+                       ctx, sev, mesh)
 
 
 @dataclasses.dataclass
@@ -751,18 +745,18 @@ class ShardedCCMM:
 
 
 def build_sharded_ccmm(cfg: CKKSConfig, num_x: int, num_row: int,
-                       columns: int, mesh: Mesh, mode: str = "col",
-                       seed: int = 7, col_chunk: int | None = None,
+                       columns: int, mesh: Mesh, seed: int = 7,
+                       col_chunk: int | None = None,
                        device="cuda") -> ShardedCCMM:
     """``tools/multichip_dryrun.py``'s CCMM (``ccmm_col_to_diag``) on
-    ``mesh`` (``ccmm_col_to_diag_sharded``; ``mode`` as in
+    ``mesh`` (``ccmm_col_to_diag_sharded``; ``shard`` as in
     ``build_sharded_step``): keys from ``seed`` in its order (the Galois
     keys of ``ccmm_col_steps``, the public key, the relinearization key), X
     and W of ``columns`` ciphertexts of N(0, 0.5) slots from
     ``default_rng(5)`` at the full chain.  ``plain`` is the unsharded CCMM
     on ``device``."""
     dev = resolve_device(device)
-    shard = _shard_for(mesh, mode)
+    shard = _shard_for(mesh)
     ctx = Context(cfg, device=dev)
     enc = Encoder(ctx)
     kg = KeyGenerator(ctx, seed=seed, device=dev)
@@ -792,20 +786,18 @@ class ShardedHead:
     head: Head
     sev: ShardedEvaluator
     mesh: Mesh
-    mode: str
 
 
-def shard_head(head: Head, mesh: Mesh, mode: str) -> ShardedHead:
+def shard_head(head: Head, mesh: Mesh) -> ShardedHead:
     """``head`` over ``mesh``: ``fn`` places the input at P("col", None,
-    "limb", None) (``mode`` "limb"; "col": P("col", None, None, None), as
-    ``_shard_for``), runs the Q/K/V CPMMs (``cpmm_sharded``, their outputs'
-    columns over col), QK^T (``ccmm_col_to_diag_sharded``), the softmax
-    (``softmax_diag_sharded``, the identity refresh) and softmax x V
-    (``ccmm_diag_to_col_sharded``) through one ``ShardedEvaluator``, and
-    returns the output with its columns over col.  Every residue is the
-    unsharded head's."""
+    "limb", None) (``_shard_for``), runs the Q/K/V CPMMs
+    (``cpmm_sharded``, their outputs' columns over col), QK^T
+    (``ccmm_col_to_diag_sharded``), the softmax (``softmax_diag_sharded``,
+    the identity refresh) and softmax x V (``ccmm_diag_to_col_sharded``)
+    through one ``ShardedEvaluator``, and returns the output with its
+    columns over col.  Every residue is the unsharded head's."""
     sev = ShardedEvaluator(head.ev, mesh)
-    shard = _shard_for(mesh, mode)
+    shard = _shard_for(mesh)
     q_mm, k_mm, v_mm = head.mms
 
     def fn(x_data: torch.Tensor) -> ShardedCiphertext:
@@ -826,13 +818,13 @@ def shard_head(head: Head, mesh: Mesh, mode: str) -> ShardedHead:
         return ccmm_diag_to_col_sharded(sev, sm, v, head.num_x,
                                         head.num_row)
 
-    return ShardedHead(fn, head.fn, head, sev, mesh, mode)
+    return ShardedHead(fn, head.fn, head, sev, mesh)
 
 
 def build_sharded_head(logN: int, n_data_levels: int, num_x: int,
                        num_row: int, d_model: int, head_dim: int, exp_r: int,
                        inv_iters: int, input_count: int, mesh: Mesh,
-                       mode: str, seed: int = 11, device="cuda",
+                       seed: int = 11, device="cuda",
                        weights: dict | None = None,
                        nominal_input_scale: bool = False) -> ShardedHead:
     """``__graft_entry__.dryrun_multichip``'s program: ``build_head``'s
@@ -844,4 +836,4 @@ def build_sharded_head(logN: int, n_data_levels: int, num_x: int,
                       exp_r, inv_iters, input_count, seed=seed, device=device,
                       weights=weights,
                       nominal_input_scale=nominal_input_scale)
-    return shard_head(head, mesh, mode)
+    return shard_head(head, mesh)

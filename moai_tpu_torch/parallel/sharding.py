@@ -4,10 +4,8 @@ Port of ``moai_tpu/parallel/sharding.py``.  The mesh's two axes are the
 two kinds of parallelism of the scheme:
 
 - ``col``, the ciphertext-column batch axis, is embarrassingly parallel:
-  each device runs the unsharded code (``Evaluator``, ``Bootstrapper``,
-  ``ops/matmul``) on its columns with its replica of the context and
-  keys; the CCMM's sum over columns is a reduce of per-shard partial
-  products (GSPMD's psum).
+  each row computes its columns with no collective; the CCMM's sum over
+  columns is a reduce of per-shard partial products (GSPMD's psum).
 - ``limb``, the RNS-limb axis: dyadic ops, the Galois permutation and
   every NTT are limb-local; the key switch and the rescale need three
   collectives: the all-gather of the decomposed polynomial's coefficient
@@ -33,26 +31,31 @@ position's index ranges (``Sharding.devices_indices_map``,
 ``ShardedCiphertext.indices``) are JAX's ``NamedSharding.
 devices_indices_map``, and a split axis must divide its dimension.
 Positions that a spec replicates hold the same data and run the same
-ops, as GSPMD's devices do.  Inside a program the limb count drops with
-every rescale and the limb shards go ragged (JAX leaves those outputs
-unconstrained too): each position keeps the limbs it held, the owner of
-a dropped limb loses it, a shard may become empty, and ``gather`` puts
-them back together exactly.
+ops, as GSPMD's devices do.  Every program runs one path: each position
+computes on its range of the limb axis, and a limb axis of length 1 is a
+split into one range, whose collectives move nothing.  So the programs
+take a ciphertext whose limbs are split over ``limb`` (``shard_ciphertext
+(..., limb=True)``); one placed whole on every position of a longer limb
+axis is placed and gathered, and the ops refuse it.  Inside a program the
+limb count drops with every rescale and the limb shards go ragged (JAX
+leaves those outputs unconstrained too): each position keeps the limbs it
+held, the owner of a dropped limb loses it, a shard may become empty, and
+``gather`` puts them back together exactly.
 
-Keys.  They are replicated over ``col``.  Over ``limb`` each position
-reads the key rows of the targets it computes: the Q limbs from the start
-of its shard to the start of the next (every Q limb it can ever hold) and
-its share of the K special limbs, an even split over the positions that
-still hold Q limbs.  JAX's drivers split the key tensor's L + K rows
-evenly instead; only outputs are compared, and they are bit-identical.
-On the keys' own device a position reads its rows in place (``ks_mac``
-takes a window of a key's rows), so a virtual mesh holds no copy of a
-key.  A position on another device holds one copy of its Q rows and all K
-special rows of each key it uses, cut at first use and kept, and no other
-copy of the keys: its evaluator replica has the context alone.  The
-sharded mod-down takes each position's inverse NTT of its own special
-limbs before the all-gather (the residues of gathering first, with less
-work).
+Keys.  Each position reads the key rows of the targets it computes: the
+Q limbs from the start of its shard to the start of the next (every Q
+limb it can ever hold) and its share of the K special limbs, an even
+split over the positions of its row that still hold Q limbs; with a limb
+axis of 1, the whole key.  JAX's drivers split the key tensor's L + K
+rows evenly instead; only outputs are compared, and they are
+bit-identical.  On the keys' own device a position reads its rows in
+place (``ks_mac`` takes a window of a key's rows), so a virtual mesh
+holds no copy of a key.  A position on another device holds one copy of
+its Q rows and all K special rows of each key it uses, cut at first use
+and kept, and no other copy of the keys: its evaluator replica has the
+context alone.  The sharded mod-down takes each position's inverse NTT of
+its own special limbs before the all-gather (the residues of gathering
+first, with less work).
 
 Devices may repeat: a mesh of 8 x ``"cpu"`` or 4 x ``"cuda:0"`` is the
 counterpart of the JAX tests' virtual CPU devices, time-sharing one real
@@ -75,7 +78,7 @@ import dataclasses
 import torch
 
 from .. import mod_arith as ma
-from ..boot.bootstrap import Bootstrapper
+from ..boot.bootstrap import Bootstrapper, make_refresh
 from ..ciphertext import Ciphertext, Plaintext
 from ..evaluator import Evaluator, _require, _sum_leading
 from ..keys import GaloisKeys
@@ -225,13 +228,14 @@ class ShardedCiphertext:
     that position's device.  ``cols``: each col index's range of the batch
     axis, None where the batch is not split (every row holds all of it);
     ``limbs``: each limb index's range of the limb axis (ragged inside a
-    program, possibly empty), None where the limbs are not split.  Inside
-    a sharded program a value may live on some rows only (a sum over col
-    onto one row, one row's rotations): its shards are those rows'."""
+    program, possibly empty), the whole axis at every index where the
+    limbs are not split.  Inside a sharded program a value may live on
+    some rows only (a sum over col onto one row, one row's rotations): its
+    shards are those rows'."""
     mesh: Mesh
     shards: dict
     cols: list | None
-    limbs: list | None
+    limbs: list
 
     @property
     def _any(self) -> Ciphertext:
@@ -251,9 +255,13 @@ class ShardedCiphertext:
 
     @property
     def n_q(self) -> int:
-        if self.limbs is None:
-            return self._any.n_q
-        return sum(hi - lo for lo, hi in self.limbs)
+        return max(hi for lo, hi in self.limbs if hi > lo)
+
+    @property
+    def limb_split(self) -> bool:
+        """Whether the limb indices hold different ranges (one range, or
+        the whole axis replicated, is no split)."""
+        return len(set(self.limbs)) > 1
 
     def indices(self, pos) -> tuple:
         """The index ranges of the whole ciphertext that ``pos`` holds."""
@@ -261,7 +269,7 @@ class ShardedCiphertext:
         idx = [slice(None)] * nd
         if self.cols is not None:
             idx[0] = slice(*self.cols[pos[0]])
-        if self.limbs is not None:
+        if self.limb_split:
             idx[nd - 2] = slice(*self.limbs[pos[1]])
         return tuple(idx)
 
@@ -277,7 +285,8 @@ def shard_ciphertext(ct: Ciphertext, mesh: Mesh, limb: bool = False
                               ct.scale, ct.is_ntt)
               for pos in mesh.positions()}
     cols = _split(shape[0], mesh.shape["col"]) if batched else None
-    limbs = _split(shape[-2], mesh.shape["limb"]) if limb else None
+    limbs = [idx[(0, j)][-2].indices(shape[-2])[:2]
+             for j in range(mesh.shape["limb"])]
     return ShardedCiphertext(mesh, shards, cols, limbs)
 
 
@@ -291,11 +300,6 @@ def _place(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return out
 
 
-def _limb_range(sct: ShardedCiphertext, pos) -> tuple:
-    """The range of the limb axis sct's shard at pos holds."""
-    return sct.limbs[pos[1]] if sct.limbs is not None else (0, sct.n_q)
-
-
 def _rows(sct: ShardedCiphertext) -> list:
     """The col indices at which sct has shards."""
     return sorted({p[0] for p in sct.shards})
@@ -307,7 +311,7 @@ def gather(sct: ShardedCiphertext, device) -> Ciphertext:
     device = resolve_device(device)
     rows = []
     for i in range(len(sct.cols)) if sct.cols is not None else [0]:
-        js = range(len(sct.limbs)) if sct.limbs is not None else [0]
+        js = range(len(sct.limbs)) if sct.limb_split else [0]
         parts = [_send(sct.shards[(i, j)].data, device, "gather")
                  for j in js]
         rows.append(torch.cat(parts, dim=-2) if len(parts) > 1 else parts[0])
@@ -318,15 +322,13 @@ def gather(sct: ShardedCiphertext, device) -> Ciphertext:
 class ShardedEvaluator:
     """The evaluator's ops over ShardedCiphertexts on ``mesh``.
 
-    A ciphertext not split over ``limb`` runs each op at each position
-    with that device's replica of ``ev`` (``Evaluator.to``): the unsharded
-    code.  One split over ``limb`` runs the limb-local ops on each
-    position's limb range and the key switch and rescale with their
-    collectives (the module docstring), out of the evaluator's own pieces
-    (``_dyadic``, ``_square``, ``_mul_int``, ``_const_residues_mont``,
-    ``_ks_extend``, ``_targets``, ``_mod_down_q``, ``_rescale_top``,
-    ``_rescale_rest``).  A plaintext operand is placed like the
-    ciphertext (``_plain``).  The ops composed of others (``rotate``,
+    Each op runs the limb-local work on each position's limb range and the
+    key switch and rescale with their collectives (the module docstring),
+    out of the evaluator's own pieces (``_dyadic``, ``_square``,
+    ``_mul_int``, ``_const_residues_mont``, ``_ks_extend``, ``_targets``,
+    ``_mod_down_q``, ``_rescale_top``, ``_rescale_rest``), each position
+    with its device's replica (``ev``).  A plaintext operand is placed like
+    the ciphertext (``_plain``).  The ops composed of others (``rotate``,
     ``rescale_pair``, ``match_scale`` and the rest below) are the
     evaluator's own code, run over these."""
 
@@ -346,35 +348,29 @@ class ShardedEvaluator:
         self.base, self.mesh, self.ctx = ev, mesh, ev.ctx
         self.galois_keys = ev.galois_keys
         self._replicas = {ev.device: ev}
-        self._bare = {}
         self._key_rows = {}
 
     def ev(self, pos) -> Evaluator:
-        """The evaluator replica of position ``pos``, with all the keys
-        (made at first use)."""
+        """The evaluator of position ``pos``: the base evaluator on its own
+        device, elsewhere one over the context's replica and the Galois
+        permutations alone (made at first use), as the ops take their key
+        rows from ``_rows_for``."""
         d = self.mesh[pos]
         if d not in self._replicas:
-            self._replicas[d] = self.base.to(d)
-        return self._replicas[d]
-
-    def _limb_ev(self, pos) -> Evaluator:
-        """An evaluator on pos's device for the limb-sharded ops, which
-        take their key rows from ``_rows_for``: the full replica where
-        there is one, else one over the context's replica and the Galois
-        permutations alone."""
-        d = self.mesh[pos]
-        if d in self._replicas:
-            return self._replicas[d]
-        if d not in self._bare:
             gks = self.base.galois_keys
-            self._bare[d] = Evaluator(
+            self._replicas[d] = Evaluator(
                 self.ctx.to(d), device=d,
                 galois_keys=None if gks is None else GaloisKeys({}, gks.perms))
-        return self._bare[d]
+        return self._replicas[d]
 
     # -- placement helpers -------------------------------------------------
     def _same(self, *scts) -> None:
         a = scts[0]
+        _require(a.limb_split or self.mesh.shape["limb"] == 1,
+                 f"a ciphertext placed whole on each of "
+                 f"{self.mesh.shape['limb']} limb positions: the sharded ops "
+                 f"take its limbs split over limb (shard_ciphertext(..., "
+                 f"limb=True))")
         for b in scts:
             _require(b.mesh is self.mesh and b.cols == a.cols
                      and b.limbs == a.limbs and b.shards.keys() ==
@@ -399,13 +395,13 @@ class ShardedEvaluator:
 
     def _window(self, pos, lo: int, hi: int):
         """q and R^-1 [hi-lo, 1] of Q limbs [lo, hi) on pos's device."""
-        dv = self._limb_ev(pos).dev
+        dv = self.ev(pos).dev
         return (dv["q"][lo:hi].reshape(-1, 1),
                 dv["rinv"][lo:hi].reshape(-1, 1))
 
     def _qr(self, pos, a: ShardedCiphertext):
         """``_window`` of the limbs a's shard at pos holds."""
-        return self._window(pos, *_limb_range(a, pos))
+        return self._window(pos, *a.limbs[pos[1]])
 
     def _gather_limbs(self, parts: dict, row: int, to: list) -> dict:
         """All-gather over the limb axis of row ``row``: the parts {j:
@@ -441,24 +437,18 @@ class ShardedEvaluator:
     # -- limb-local ops ----------------------------------------------------
     def add(self, a: ShardedCiphertext, b: ShardedCiphertext
             ) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x, y: self.ev(p).add(x, y), a, b)
         self.base._check_add("add", a, b)
         return self._each(lambda p, x, y: x.with_data(ma.add_mod(
             x.data, y.data, self._qr(p, a)[0])), a, b)
 
     def sub(self, a: ShardedCiphertext, b: ShardedCiphertext
             ) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x, y: self.ev(p).sub(x, y), a, b)
         self.base._check_add("sub", a, b)
         return self._each(lambda p, x, y: x.with_data(ma.sub_mod(
             x.data, y.data, self._qr(p, a)[0])), a, b)
 
     def multiply(self, a: ShardedCiphertext, b: ShardedCiphertext
                  ) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x, y: self.ev(p).multiply(x, y), a, b)
         _require(a.n_q == b.n_q and a.n_polys == 2 and b.n_polys == 2,
                  "multiply: two 2-poly ciphertexts at one level")
         return self._each(lambda p, x, y: Ciphertext(Evaluator._dyadic(
@@ -466,22 +456,16 @@ class ShardedEvaluator:
             x.scale * y.scale, True), a, b)
 
     def square(self, a: ShardedCiphertext) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x: self.ev(p).square(x), a)
         return self._each(lambda p, x: Ciphertext(Evaluator._square(
             x.data, *self._qr(p, a)), x.scale * x.scale,
             True), a)
 
     def mul_int(self, a: ShardedCiphertext, n: int) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x: self.ev(p).mul_int(x, n), a)
         _require(n >= 1, "mul_int: n >= 1")
         return self._each(lambda p, x: x.with_data(Evaluator._mul_int(
             x.data, n, self._qr(p, a)[0])), a)
 
     def negate(self, a: ShardedCiphertext) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x: self.ev(p).negate(x), a)
         return self._each(lambda p, x: x.with_data(ma.neg_mod(
             x.data, self._qr(p, a)[0])), a)
 
@@ -492,16 +476,12 @@ class ShardedEvaluator:
         d = pt.data
         if d.dim() > 2 and a.cols is not None:
             d = d[slice(*a.cols[pos[0]])]
-        if a.limbs is not None:
-            d = d[..., slice(*a.limbs[pos[1]]), :]
+        d = d[..., slice(*a.limbs[pos[1]]), :]
         return Plaintext(_send(d, self.mesh[pos], "scatter"), pt.scale,
                          pt.is_ntt)
 
     def add_plain(self, a: ShardedCiphertext, pt: Plaintext
                   ) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x: self.ev(p).add_plain(
-                x, self._plain(pt, a, p)), a)
         self.base._check_add("add_plain", a, pt)
         return self._each(lambda p, x: Evaluator._with_c0(x, ma.add_mod(
             x.data[..., 0, :, :], self._plain(pt, a, p).data,
@@ -509,9 +489,6 @@ class ShardedEvaluator:
 
     def multiply_plain(self, a: ShardedCiphertext, pt: Plaintext
                        ) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x: self.ev(p).multiply_plain(
-                x, self._plain(pt, a, p)), a)
         _require(a.n_q == pt.n_q,
                  f"multiply_plain: levels {a.n_q} vs {pt.n_q}")
         return self._each(lambda p, x: Ciphertext(ma.mont_mul(
@@ -521,21 +498,16 @@ class ShardedEvaluator:
     def _const(self, p, a: ShardedCiphertext, value: float, scale: float):
         """``Evaluator._const_residues_mont`` of p's limbs."""
         lo, hi = a.limbs[p[1]]
-        return self._limb_ev(p)._const_residues_mont(value, scale, hi, lo)
+        return self.ev(p)._const_residues_mont(value, scale, hi, lo)
 
     def add_const(self, a: ShardedCiphertext, value: float
                   ) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x: self.ev(p).add_const(x, value), a)
         return self._each(lambda p, x: Evaluator._with_c0(x, ma.add_mod(
             x.data[..., 0, :, :], self._const(p, a, value, a.scale),
             self._qr(p, a)[0])), a)
 
     def mul_const(self, a: ShardedCiphertext, value: float,
                   const_scale: float | None = None) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x: self.ev(p).mul_const(
-                x, value, const_scale), a)
         cs = const_scale if const_scale is not None else \
             self.level_pair_scale(a.n_q)
         return self._each(lambda p, x: Ciphertext(ma.mont_mul(
@@ -573,8 +545,6 @@ class ShardedEvaluator:
 
     def mod_drop_to(self, a: ShardedCiphertext, n_q: int
                     ) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x: self.ev(p).mod_drop_to(x, n_q), a)
         _require(n_q <= a.n_q, f"mod_drop_to: {n_q} above {a.n_q}")
         limbs = [(lo, max(lo, min(hi, n_q))) for lo, hi in a.limbs]
         return self._each(lambda p, x: x.with_data(
@@ -585,6 +555,7 @@ class ShardedEvaluator:
     def _plan(self, a: ShardedCiphertext):
         """The limb indices that hold Q limbs, and each one's share of the
         K special limbs (an even split)."""
+        self._same(a)
         K = self.ctx.K
         act = [j for j, (lo, hi) in enumerate(a.limbs) if hi > lo]
         return act, {j: (k * K // len(act), (k + 1) * K // len(act))
@@ -598,7 +569,7 @@ class ShardedEvaluator:
         act, share = self._plan(a)
         y = {}
         for i in _rows(a):
-            ev = {j: self._limb_ev((i, j)) for j in act}
+            ev = {j: self.ev((i, j)) for j in act}
             c = self._gather_limbs(
                 {j: intt(polys[(i, j)], ev[j].tbd, limb_slice=a.limbs[j])
                  for j in act}, i, act)
@@ -621,7 +592,7 @@ class ShardedEvaluator:
         ends = [a.limbs[j + 1][0] for j in range(m - 1)] + [cur]
         out = {}
         for i in _rows(a):
-            ev = {j: self._limb_ev((i, j)) for j in act}
+            ev = {j: self.ev((i, j)) for j in act}
             acc = {}
             for j in act:
                 p, (lo, hi) = (i, j), a.limbs[j]
@@ -654,8 +625,6 @@ class ShardedEvaluator:
         return self._mac_moddown(a, self._decompose(a, polys), [(name, key)])
 
     def relinearize(self, a: ShardedCiphertext) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x: self.ev(p).relinearize(x), a)
         _require(a.n_polys == 3 and self.base.relin_key is not None,
                  "relinearize: a 3-poly ciphertext and a relin key")
         ks = self._switch_key(a, {p: x.data[..., 2, :, :]
@@ -673,10 +642,8 @@ class ShardedEvaluator:
 
     def apply_galois(self, a: ShardedCiphertext, g: int
                      ) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x: self.ev(p).apply_galois(x, g), a)
         _require(a.n_polys == 2, "apply_galois: a 2-poly ciphertext")
-        d = {p: torch.index_select(x.data, -1, self._limb_ev(p)._perm(g))
+        d = {p: torch.index_select(x.data, -1, self.ev(p)._perm(g))
              for p, x in a.shards.items()}
         ks = self._switch_key(a, {p: t[..., 1, :, :] for p, t in d.items()},
                               g, self.base.galois_keys.keys[g])
@@ -696,9 +663,6 @@ class ShardedEvaluator:
         once, then ``chunk`` rotations per MAC (each position reading its
         rows of each rotation's key through the rotation's permutation)
         and mod-down -> a new leading axis R = len(steps)."""
-        if a.limbs is None:
-            return self._each(lambda p, x: self.ev(p).rotate_hoisted(
-                x, steps, chunk), a)
         _require(a.n_polys == 2, "rotate_hoisted: a 2-poly ciphertext")
         two_n, n = 2 * self.ctx.cfg.N, self.ctx.cfg.N // 2
         elts = [pow(5, s % n, two_n) for s in steps]
@@ -708,7 +672,7 @@ class ShardedEvaluator:
         outs = []
         for s0 in range(0, len(steps), chunk):
             es = elts[s0:s0 + chunk]
-            perm = {p: torch.stack([self._limb_ev(p)._perm(g) for g in es])
+            perm = {p: torch.stack([self.ev(p)._perm(g) for g in es])
                     for p in a.shards}
             d = self._mac_moddown(
                 a, y, [(g, self.base.galois_keys.keys[g]) for g in es], perm)
@@ -725,15 +689,13 @@ class ShardedEvaluator:
             self.map_data(lambda *ds: torch.cat(ds), *outs)
 
     def rescale(self, a: ShardedCiphertext) -> ShardedCiphertext:
-        if a.limbs is None:
-            return self._each(lambda p, x: self.ev(p).rescale(x), a)
         ell = a.n_q - 1
         _require(ell >= 1, "rescale: no prime left to drop")
         o = next(j for j, (lo, hi) in enumerate(a.limbs) if lo <= ell < hi)
         limbs = [(lo, max(lo, min(hi, ell))) for lo, hi in a.limbs]
         scale = a.scale / self.ctx.q_primes[ell]
         top = a.limbs[o][0]
-        u = {i: self._limb_ev((i, o))._rescale_top(
+        u = {i: self.ev((i, o))._rescale_top(
             a.shards[(i, o)].data[..., ell - top:ell - top + 1, :], ell)
             for i in _rows(a)}
 
@@ -743,25 +705,25 @@ class ShardedEvaluator:
             if hi > lo:
                 up = u[p[0]] if p[1] == o else \
                     _send(u[p[0]], self.mesh[p], "broadcast")
-                data = self._limb_ev(p)._rescale_rest(data, up, ell, lo,
+                data = self.ev(p)._rescale_rest(data, up, ell, lo,
                                                       hi)
             return Ciphertext(data, scale, True)
         return self._each(f, a, limbs=limbs)
 
 
 class ShardedBootstrapper:
-    """A Bootstrapper over a mesh.  A batch split over ``col`` alone
-    bootstraps each position's columns with its device's replica
-    (``Bootstrapper.to``): the unsharded code.  A ciphertext split over
-    ``limb`` runs ``Bootstrapper.__call__`` itself over the
-    ``ShardedEvaluator`` (EvalMod is evaluator ops only), with ModRaise,
-    the CoeffToSlot/SlotToCoeff levels and the multiplication by i on each
-    position's limb range out of the Bootstrapper's own pieces: ModRaise
-    all-gathers its n_q0 lifted limbs and each position converts them to
-    its even share of the L limbs; each level's diagonals are encoded per
-    replica and turned into residues of the position's limbs only."""
+    """A Bootstrapper over a mesh: the bootstrap of a sharded ciphertext
+    (the boot program of tools/multichip_dryrun.py) is
+    ``Bootstrapper.__call__`` itself over the ``ShardedEvaluator`` (EvalMod
+    is evaluator ops only), with ModRaise, the CoeffToSlot/SlotToCoeff
+    levels and the multiplication by i on each position's limb range out
+    of the Bootstrapper's own pieces, each position with its device's
+    replica (``_replica``): ModRaise all-gathers its n_q0 lifted limbs and
+    each position converts them to its even share of the L limbs; each
+    level's diagonals are encoded per replica and turned into residues of
+    the position's limbs only."""
 
-    _run = Bootstrapper.__call__
+    __call__ = Bootstrapper.__call__
     _stage = Bootstrapper._stage
 
     def __init__(self, bt: Bootstrapper, mesh: Mesh):
@@ -771,31 +733,15 @@ class ShardedBootstrapper:
         self.c2s_levels, self.s2c_levels = bt.c2s_levels, bt.s2c_levels
         self.q0, self.n_out = bt.q0, bt.n_out
         self.on_stage = None
-        self._full, self._bare = {}, {}
+        self._replicas = {}
 
-    def bootstrapper(self, pos) -> Bootstrapper:
-        """The replica of position ``pos``, with all the keys."""
+    def _replica(self, pos) -> Bootstrapper:
+        """The replica of position ``pos``, over the evaluator of
+        ``ShardedEvaluator.ev``."""
         d = self.mesh[pos]
-        if d not in self._full:
-            self._full[d] = self.bt.to(d, self.ev.ev(pos))
-        return self._full[d]
-
-    def _limb_bt(self, pos) -> Bootstrapper:
-        """The replica for the limb-sharded pieces, over the evaluator of
-        ``ShardedEvaluator._limb_ev``."""
-        d = self.mesh[pos]
-        if d not in self._bare:
-            self._bare[d] = self.bt.to(d, self.ev._limb_ev(pos))
-        return self._bare[d]
-
-    def __call__(self, sct: ShardedCiphertext) -> ShardedCiphertext:
-        """The bootstrap of a sharded ciphertext (the boot program of
-        tools/multichip_dryrun.py)."""
-        if sct.limbs is None:
-            return ShardedCiphertext(
-                self.mesh, {p: self.bootstrapper(p)(x)
-                            for p, x in sct.shards.items()}, sct.cols, None)
-        return self._run(sct)
+        if d not in self._replicas:
+            self._replicas[d] = self.bt.to(d, self.ev.ev(pos))
+        return self._replicas[d]
 
     def modraise(self, a: ShardedCiphertext) -> ShardedCiphertext:
         sev, n0, L = self.ev, self.ctx.n_q0, self.ctx.L
@@ -803,15 +749,15 @@ class ShardedBootstrapper:
         m = self.mesh.shape["limb"]
         _require(L % m == 0, f"{L} limbs do not split {m} ways")
         limbs = [(j * L // m, (j + 1) * L // m) for j in range(m)]
-        act = [j for j, (lo, hi) in enumerate(a.limbs) if hi > lo]
+        act, _ = sev._plan(a)
         shards = {}
         for i in _rows(a):
             lam = sev._gather_limbs(
-                {j: self._limb_bt((i, j))._modraise_lift(
+                {j: self._replica((i, j))._modraise_lift(
                     a.shards[(i, j)].data, *a.limbs[j]) for j in act},
                 i, list(range(m)))
             for j in range(m):
-                shards[(i, j)] = Ciphertext(self._limb_bt(
+                shards[(i, j)] = Ciphertext(self._replica(
                     (i, j))._modraise_convert(lam[j], *limbs[j]), a.scale,
                     True)
         return ShardedCiphertext(self.mesh, shards, a.cols, limbs)
@@ -820,7 +766,7 @@ class ShardedBootstrapper:
         def f(p, x):
             lo, hi = a.limbs[p[1]]
             return x.with_data(ma.mont_mul(
-                x.data, self._limb_bt(p)._i_mono(hi)[lo:],
+                x.data, self._replica(p)._i_mono(hi)[lo:],
                 *self.ev._window(p, lo, hi)))
         return self.ev._each(f, a)
 
@@ -834,7 +780,7 @@ class ShardedBootstrapper:
         lev = (self.c2s_levels if kind == "c2s" else self.s2c_levels)[i]
         g, groups = _giant_groups(lev)
         scale = sev.level_pair_scale(a.n_q)
-        enc = {p: self._limb_bt(p)._encoded(kind, i, a.n_q, alpha)
+        enc = {p: self._replica(p)._encoded(kind, i, a.n_q, alpha)
                for p in a.shards}
         rot = {0: a}
         nonzero = [s for s in sorted({d % g for d in lev}) if s]
@@ -850,7 +796,7 @@ class ShardedBootstrapper:
                 data = xs[0].data
                 if hi > lo:
                     pts = diagonal_plaintexts(
-                        self._limb_bt(p).ctx, [enc[p][(gi, d)] for d in ds],
+                        self._replica(p).ctx, [enc[p][(gi, d)] for d in ds],
                         hi, lo)
                     data = ma.diag_mac([x.data for x in xs], pts,
                                        *sev._window(p, lo, hi))
@@ -864,15 +810,13 @@ class ShardedBootstrapper:
 
     def make_refresh(self, m_bound: float = 1.0):
         """``boot.bootstrap.make_refresh`` over the mesh: refresh(ct, n_q)
-        shards ct over ``col`` (and over ``limb`` when the mesh's limb axis
-        is more than 1), runs the refresh on the shards and gathers the
-        result back onto ct's device."""
-        from ..boot.bootstrap import make_refresh
+        shards ct's batch over ``col`` and its limbs over ``limb``, runs
+        the refresh on the shards and gathers the result back onto ct's
+        device."""
         inner = make_refresh(self, m_bound)
-        limb = self.mesh.shape["limb"] > 1
 
         def refresh(ct: Ciphertext, n_q: int) -> Ciphertext:
-            out = inner(shard_ciphertext(ct, self.mesh, limb=limb), n_q)
+            out = inner(shard_ciphertext(ct, self.mesh, limb=True), n_q)
             return gather(out, ct.data.device)
         return refresh
 
@@ -955,7 +899,7 @@ def _split_cols(sev: ShardedEvaluator, a: ShardedCiphertext
 def cpmm_sharded(sev: ShardedEvaluator, mm, x: ShardedCiphertext
                  ) -> ShardedCiphertext:
     """``ops.matmul.CPMM.__call__`` over the mesh: x's batch (the rows J of
-    W) split over col, its limbs over limb or not.  Each position takes
+    W) split over col, its limbs over limb.  Each position takes
     ``CPMM.product`` over its rows of W and its limb window; the partials
     are summed over col, each row receiving its even range of the output
     columns I (GSPMD's reduce-scatter: the psum of the contraction over
@@ -969,7 +913,7 @@ def cpmm_sharded(sev: ShardedEvaluator, mm, x: ShardedCiphertext
              "cpmm_sharded: x's batch is to be split over col")
     out = _reduce_col(sev, ShardedCiphertext(sev.mesh, {p: Ciphertext(
         mm.product(xs, rows=None if x.cols is None else slice(*x.cols[p[0]]),
-                   window=_limb_range(x, p)), x.scale * mm.w_scale, True)
+                   window=x.limbs[p[1]]), x.scale * mm.w_scale, True)
         for p, xs in x.shards.items()}, None, x.limbs), scatter=True)
     return mm.finish_ct(sev, out)
 
@@ -988,7 +932,7 @@ def softmax_diag_sharded(sev: ShardedEvaluator, encoder,
     col onto row 0 (GSPMD's psum), where it takes ``eps`` and ``refresh``
     (ShardedCiphertext -> ShardedCiphertext, called once); the sum is then
     broadcast over col and every row takes its Goldschmidt inverse
-    (replicated over col, as GSPMD places it, its limbs split where x's
+    (replicated over col, as GSPMD places it, its limbs split as x's
     are), and multiplies it into its own diagonals.  ``pts`` as
     ``softmax_exp_sum`` takes it."""
     from ..ops.nonlinear import softmax_exp_sum, softmax_finish

@@ -31,6 +31,7 @@ import torch
 
 from moai_tpu_torch import limb_cuda, modmat, modmat_cuda, ntt_cuda, serial
 from moai_tpu_torch import mod_arith as ma
+from moai_tpu_torch.ciphertext import Ciphertext
 from moai_tpu_torch.encoder import Encoder
 from moai_tpu_torch.encrypt import Encryptor
 from moai_tpu_torch.entry import (build_bootstrap, build_head,
@@ -43,7 +44,8 @@ from moai_tpu_torch.models.lfm2 import Lfm2ConvDims
 from moai_tpu_torch.ntt import ntt, intt, ntt_plain, intt_plain
 from moai_tpu_torch.params import CKKSConfig, Context, head_config, \
     test_config as _test_config
-from moai_tpu_torch.parallel.sharding import gather, make_mesh
+from moai_tpu_torch.parallel.sharding import (ShardedBootstrapper, gather,
+                                              make_mesh)
 from moai_tpu_torch.primes import ntt_primes_near
 
 
@@ -669,14 +671,14 @@ def _sharded_programs_equal_unsharded(devices):
     """On meshes over ``devices`` (cards, possibly repeated): the evaluator
     step on (1, 2) over limb and, given 4 devices, on (2, 2) over col and
     limb (key rows copied to the cards without the keys alone); the CCMM
-    over (2, 1) and (1, 2); make_refresh over (2, 1) and (1, 2).  Each
-    gathered onto the first card and held torch.equal to the same program
-    unsharded there; every kernel the unsharded program launched also
-    launched in the sharded one."""
+    over (2, 1) and (1, 2); ShardedBootstrapper.make_refresh over (2, 1)
+    and (1, 2).  Each gathered onto the first card and held torch.equal to
+    the same program unsharded there; every kernel the unsharded program
+    launched also launched in the sharded one."""
     home = devices[0]
     for n in (2, 4)[:len(devices) // 2]:
         st = build_sharded_step(STEP9, 4, make_mesh(n, 2, devices[:n]),
-                                "limb", device=home)
+                                device=home)
         want = st.plain(st.a, st.b)
         limb_cuda.reset_launches()
         ntt_cuda.reset_launches()
@@ -692,16 +694,17 @@ def _sharded_programs_equal_unsharded(devices):
     want = cc.plain(cc.x, cc.w)
     assert got.scale == want.scale and torch.equal(got.data, want.data)
     cc = build_sharded_ccmm(STEP9, 64, 4, 4, make_mesh(2, 2, devices[:2]),
-                            mode="limb", col_chunk=1, device=home)
+                            col_chunk=1, device=home)
     got = gather(cc.fn(cc.shard(cc.x), cc.shard(cc.w)), home)
     assert torch.equal(got.data, want.data)
     plain = build_bootstrap(BOOT9, 2, seed=101, device=home)
     want = plain.fn(plain.x_data)
+    x = Ciphertext(plain.x_data, plain.ctx.scale, True)
     for n, la in ((2, 1), (2, 2)):
-        sharded = build_bootstrap(BOOT9, 2, seed=101, device=home,
-                                  mesh=make_mesh(n, la, devices[:n]))
+        refresh = ShardedBootstrapper(
+            plain.bootstrapper, make_mesh(n, la, devices[:n])).make_refresh()
         limb_cuda.reset_launches()
-        got = sharded.fn(sharded.x_data)
+        got = refresh(x, plain.n_out)
         assert limb_cuda.launches["diag_mac"] > 0
         assert got.scale == want.scale and torch.equal(got.data, want.data)
 
@@ -726,7 +729,7 @@ def test_sharded_head_on_a_virtual_mesh(card):
     head on the card, launching every kernel that the unsharded head
     launches."""
     S = build_sharded_head(9, 12, 32, 8, 8, 8, 2, 2, 3,
-                           make_mesh(4, 2, [card] * 4), "limb", device=card)
+                           make_mesh(4, 2, [card] * 4), device=card)
     limb_cuda.reset_launches()
     ntt_cuda.reset_launches()
     want = S.plain(S.head.x_data)

@@ -1,8 +1,10 @@
 """moai_tpu_torch stands alone: every module imports with JAX and moai_tpu
 blocked, its entry points default to CUDA and raise without a card, and
 chip_smoke.py fails, printing no result, without a card or without the
-package beside it."""
+package beside it.  Its layers point one way: nothing below parallel/
+imports it."""
 
+import ast
 import os
 import pkgutil
 import shutil
@@ -24,6 +26,37 @@ MODULES = sorted(m.name for m in pkgutil.walk_packages(
 def _run(code: str, cwd=ROOT):
     return subprocess.run([sys.executable, "-c", code], cwd=cwd,
                           capture_output=True, text=True, timeout=300)
+
+
+def _imports(path: Path) -> set:
+    """Every module the file at ``path`` imports, anywhere in its code
+    (inside functions too), by absolute name; ``from X import y`` counts
+    X and X.y."""
+    rel = path.relative_to(ROOT).with_suffix("").parts
+    package = rel[:-1]
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = ".".join(package[:len(package) + 1 - node.level]
+                            if node.level else ())
+            base = ".".join(p for p in (base, node.module) if p)
+            out |= {base} | {f"{base}.{a.name}" for a in node.names}
+    return out
+
+
+def test_only_entry_and_parallel_import_parallel():
+    """parallel/ sits above boot/, ops/, the evaluator and the rest: only
+    entry.py and parallel/ itself import it."""
+    pkg = Path(moai_tpu_torch.__file__).parent
+    importers = {
+        str(path.relative_to(pkg)) for path in pkg.rglob("*.py")
+        if any(m.split(".")[:2] == ["moai_tpu_torch", "parallel"]
+               for m in _imports(path))}
+    assert "entry.py" in importers
+    assert {p for p in importers if p != "entry.py"
+            and not p.startswith("parallel/")} == set()
 
 
 def test_every_module_imports_without_jax():
@@ -69,8 +102,7 @@ def test_entry_points_default_to_cuda(entry):
         "Evaluator": lambda: Evaluator(ctx),
         "build_head": lambda: build_head(9, 12, 32, 8, 8, 8, 2, 2, 3),
         "build_sharded_head": lambda: build_sharded_head(
-            9, 12, 32, 8, 8, 8, 2, 2, 3, make_mesh(4, 2, ["cpu"] * 4),
-            "limb"),
+            9, 12, 32, 8, 8, 8, 2, 2, 3, make_mesh(4, 2, ["cpu"] * 4)),
         "build_layer": lambda: build_layer(
             9, 10, BertDims(32, 8, 8, 2, 4, 16), DepthPlan(2, 2, 1, 0, 8), 3),
         "build_model": lambda: build_model(

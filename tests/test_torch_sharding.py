@@ -40,9 +40,8 @@ STEP_CFG = dict(logN=9, q0_bits=(30.0, 30.0), data_pair_bits=26.0,
                 n_data_levels=7, n_boot_levels=0, dnum=2, hamming_weight=64)
 BATCH = 8
 NUM_X, NUM_ROW = 64, 4          # logN 9: 256 slots
-# (devices, limb axis, mode of build_sharded_step) of each sharding
-MESHES = {"col": (8, 1, "col"), "limb": (8, 8, "limb"),
-          "col_limb": (8, 2, "limb")}
+# (devices, limb axis) of each sharding
+MESHES = {"col": (8, 1), "limb": (8, 8), "col_limb": (8, 2)}
 SPECS = {"col": P("col", None, None, None), "limb": P(None, None, "limb", None),
          "col_limb": P("col", None, "limb", None)}
 
@@ -74,7 +73,7 @@ def _jax_map(jsharding, shape):
 
 @pytest.mark.parametrize("mode", list(MESHES))
 def test_placement_matches_jax(mode):
-    n, la, _ = MESHES[mode]
+    n, la = MESHES[mode]
     jmesh, mesh = jsh.make_mesh(n, limb_axis=la), _cpu_mesh(n, la)
     assert np.shape(jmesh.devices) == (mesh.shape["col"], mesh.shape["limb"])
     data = torch.from_numpy(np.random.default_rng(1).integers(
@@ -104,8 +103,9 @@ def test_placement_matches_jax(mode):
 
 
 def test_mesh_and_replicas():
-    """make_mesh's JAX order, its refusals, and replicas that are the
-    object itself on its own device."""
+    """make_mesh's JAX order, its refusals, replicas that are the object
+    itself on its own device, and the sharded ops' refusal of a batch
+    placed whole on each position of a limb axis of 2."""
     mesh = _cpu_mesh(8, 2)
     assert mesh.shape == {"col": 4, "limb": 2} and mesh.positions()[1] == (0, 1)
     assert mesh.distinct() == [torch.device("cpu")]
@@ -122,12 +122,18 @@ def test_mesh_and_replicas():
         with pytest.raises(RuntimeError, match="present"):
             make_mesh(torch.cuda.device_count() + 1)
     st = build_sharded_step(CKKSConfig(**STEP_CFG), 2, mesh=_cpu_mesh(1, 1),
-                            mode="col", device="cpu")
+                            device="cpu")
     ev = st.sev.base
     assert ev.to("cpu") is ev and ev.ctx.to("cpu") is ev.ctx
     assert ev.relin_key.to("cpu") is ev.relin_key
     assert ev.galois_keys.to("cpu") is ev.galois_keys
     assert st.sev.ev((0, 0)) is ev
+    sev = ShardedEvaluator(ev, _cpu_mesh(2, 2))
+    x = shard_ciphertext(st.a, sev.mesh)
+    assert torch.equal(gather(x, "cpu").data, st.a.data)
+    for op in (lambda: sev.add(x, x), lambda: sev.rotate_hoisted(x, [1])):
+        with pytest.raises(ValueError, match="placed whole"):
+            op()
 
 
 @pytest.fixture(scope="module")
@@ -154,12 +160,12 @@ def jax_step():
 @pytest.mark.parametrize("mode", list(MESHES))
 def test_step_bit_identical_to_jax(jax_step, mode):
     ja, jb, step = jax_step
-    n, la, smode = MESHES[mode]
+    n, la = MESHES[mode]
     sh = NamedSharding(jsh.make_mesh(n, limb_axis=la), SPECS[mode])
     want = _jit(step, (sh, sh), jax.device_put(ja.data, sh),
                 jax.device_put(jb.data, sh))
     st = build_sharded_step(CKKSConfig(**STEP_CFG), BATCH, _cpu_mesh(n, la),
-                            smode, device="cpu")
+                            device="cpu")
     assert _eq(st.a.data, ja.data) and _eq(st.b.data, jb.data)
     out = st.fn(st.shard(st.a), st.shard(st.b))
     if mode != "col":               # two rescales left the limbs ragged
@@ -220,7 +226,7 @@ def test_ccmm_col_sharded_bit_identical_to_jax():
     assert got.scale == want.scale and torch.equal(got.data, want.data)
     # the same CCMM with its columns and limbs sharded on a (2, 2) mesh
     both = build_sharded_ccmm(cfg, NUM_X, NUM_ROW, 4, _cpu_mesh(4, 2),
-                              mode="limb", col_chunk=1, device="cpu")
+                              col_chunk=1, device="cpu")
     assert torch.equal(gather(both.fn(both.shard(both.x),
                                       both.shard(both.w)), "cpu").data,
                        want.data)
@@ -302,16 +308,18 @@ def test_bootstrap_batch_sharded_vs_jax():
 
 @pytest.mark.slow
 def test_make_refresh_on_mesh_equals_unsharded():
-    """build_bootstrap's refresh with its batch of 4 split over a (2, 1)
-    and a (4, 1) mesh, and with its limbs split too over a (2, 2) mesh,
-    gives the unsharded refresh's residues (logN 9)."""
+    """build_bootstrap's Bootstrapper as ShardedBootstrapper.make_refresh,
+    its batch of 4 split over a (2, 1) and a (4, 1) mesh, and with its
+    limbs split too over a (2, 2) mesh: the unsharded refresh's residues
+    (logN 9)."""
     cfg = CKKSConfig(logN=9, q0_bits=(30.0, 30.0), data_pair_bits=26.0,
                      n_data_levels=13, dnum=7, special_bits=29.5,
                      hamming_weight=64)
     want = build_bootstrap(cfg, 4, seed=101, device="cpu")
     out = want.fn(want.x_data)
+    x = Ciphertext(want.x_data, want.ctx.scale, True)
     for n, la in ((2, 1), (4, 1), (4, 2)):
-        b = build_bootstrap(cfg, 4, seed=101, mesh=_cpu_mesh(n, la),
-                            device="cpu")
-        got = b.fn(b.x_data)
+        refresh = ShardedBootstrapper(want.bootstrapper,
+                                      _cpu_mesh(n, la)).make_refresh()
+        got = refresh(x, want.n_out)
         assert got.scale == out.scale and torch.equal(got.data, out.data)

@@ -176,8 +176,7 @@ def test_build_sharded_head(head, c, l):
     gather was made, and only a limb split's placement copied the input
     (each of its shards a strided slice)."""
     h, val = head
-    mode = "limb" if l > 1 else "col"
-    S = build_sharded_head(**DIMS, mesh=_mesh(c, l), mode=mode, device="cpu",
+    S = build_sharded_head(**DIMS, mesh=_mesh(c, l), device="cpu",
                            nominal_input_scale=True)
     assert torch.equal(S.head.x_data, h.x_data)
     reset_moved()
@@ -211,8 +210,8 @@ def test_head_bit_identical_to_jax_dryrun():
         x).compile(compiler_options={
             "xla_backend_optimization_level": 0,
             "xla_llvm_disable_expensive_passes": True})(x)
-    S = build_sharded_head(**DIMS, mesh=_mesh(4, 2), mode="limb",
-                           device="cpu", nominal_input_scale=True)
+    S = build_sharded_head(**DIMS, mesh=_mesh(4, 2), device="cpu",
+                           nominal_input_scale=True)
     assert np.array_equal(S.head.x_data.numpy().astype(np.int64),
                           np.asarray(x_data).astype(np.int64))
     got = gather(S.fn(S.head.x_data), "cpu")
